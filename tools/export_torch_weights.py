@@ -1,0 +1,71 @@
+"""Export a trained flax rec head for the PyTorch port.
+
+Reads ``checkpoints/<head>`` (orbax) through ``vse_tpu.core.registry`` and
+writes, for ``vse_tpu_torch``, which reads neither orbax nor flax:
+
+  checkpoints_torch/<head>.npz            the flax variables flattened to
+                                          numpy, keys joined with "/", f32
+  checkpoints_torch/<head>.vse_meta.json  a copy of the head's vse_meta.json
+
+The port maps the arrays onto its CRNN at load
+(``vse_tpu_torch.weights.from_jax_params``). Runs on the CPU with JAX:
+
+    JAX_PLATFORMS=cpu python tools/export_torch_weights.py [--head rec_en_mobile]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def export(head: str, out_dir: str) -> str:
+    import jax.numpy as jnp
+    import numpy as np
+    from flax.traverse_util import flatten_dict
+
+    from vse_tpu.core.registry import init_or_load, load_meta, models_root
+    from vse_tpu.models.crnn import CRNNRecognizer
+
+    ckpt = os.path.join(models_root(), head)
+    meta = load_meta(ckpt)
+    if meta is None:
+        raise SystemExit(f"{ckpt} has no vse_meta.json")
+    variant = meta.get("variant", "mobile")
+    model = CRNNRecognizer(
+        vocab_size=int(meta["vocab_size"]), variant=variant,
+        hidden=int(meta.get("hidden", 0) or 0),
+        cnn_scale=float(meta.get("cnn_scale", 0.0) or 0.0),
+    )
+    variables, loaded = init_or_load(model, jnp.zeros((1, 48, 320, 3)), ckpt)
+    if not loaded:
+        raise SystemExit(f"could not restore {ckpt}")
+    flat = {
+        "/".join(k): np.asarray(v, np.float32)
+        for k, v in flatten_dict(variables).items()
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    npz = os.path.join(out_dir, f"{head}.npz")
+    np.savez_compressed(npz, **flat)
+    with open(os.path.join(out_dir, f"{head}.vse_meta.json"), "w", encoding="utf-8") as f:
+        json.dump(meta, f, sort_keys=True)
+        f.write("\n")
+    return npz
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--head", default="rec_en_mobile")
+    ap.add_argument("--out", default=os.path.join(ROOT, "checkpoints_torch"))
+    args = ap.parse_args()
+    path = export(args.head, args.out)
+    print(f"{path}: {os.path.getsize(path)} bytes")
+
+
+if __name__ == "__main__":
+    main()
