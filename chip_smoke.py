@@ -8,10 +8,17 @@ Phases, each timed; any failure raises and the script exits non-zero:
 1. environment: the card's name and power limit (nvidia-smi), torch/CUDA
    versions, and whether OpenCV and ninja exist (printed only, never needed);
 2. build: the CUDA kernels of ``vse_tpu_torch/csrc`` with one nvcc call;
-3. kernel parity on the card: K1 (greedy-CTC argmax/softmax-prob) and K2
-   (keyframe stats) against their plain PyTorch versions on the same inputs,
-   with each kernel's median time, its device-memory bound and the plain
-   version's time;
+3. kernel parity on the card: K1 (greedy CTC decode) and K2 (keyframe
+   stats) against their plain PyTorch versions on the same inputs, twice
+   (the kernels are deterministic), and each kernel's times at the main
+   path's shapes: ``device_us``, its own device time (100 launches into
+   preallocated buffers captured in a CUDA graph, replayed between CUDA
+   events), ``wall_us``, the host-clock cost of one wrapper call as the main
+   path makes it (200 calls, then a synchronize), ``loop_us`` (CUDA events
+   around 100 back-to-back launches from Python: host-bound when the kernel
+   is shorter than a call), its device-memory bound and share of it, the
+   plain version's wall time and, for K1, the library composite
+   ``torch.max`` + ``torch.logsumexp`` (a yardstick the port never calls);
 4. the main path, ``extract --area --mode fast`` for ``en`` through
    ``SubtitleExtractor(...).run()`` on a 20 s 1280x720 25 fps clip composed
    in memory from ``vse_tpu_torch/assets/smoke``, with the real PP-OCRv3
@@ -38,30 +45,75 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-REPS = 30
+GRAPH_LAUNCHES = 100  # kernel launches captured in one CUDA graph
+REPLAYS = 5
+WALL_CALLS = 200
 
 
 def phase(name: str, t0: float) -> None:
     print(f"[phase] {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+def device_us(fn, n: int = GRAPH_LAUNCHES, replays: int = REPLAYS) -> float:
+    """A kernel's own device time: ``fn`` (one launch into preallocated
+    buffers) captured ``n`` times back to back in a CUDA graph, the graph
+    replayed between CUDA events; median over ``replays`` of elapsed / n.
+    The graph leaves no host work between the launches."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    fn()  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(replays):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        graph.replay()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) * 1e3 / n)
+    del graph
     return statistics.median(times)
+
+
+def loop_us(fn, n: int = GRAPH_LAUNCHES) -> float:
+    """CUDA events around ``n`` back-to-back calls of ``fn`` from Python,
+    elapsed / n: the device time when the kernel outlasts one call's host
+    work, the host's cost per call when it does not."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 1e3 / n
+
+
+def wall_us(fn, n: int = WALL_CALLS) -> float:
+    """Host-clock cost of one call as a caller makes it: ``n`` calls, then
+    a synchronize, over n."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / n
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -94,6 +146,25 @@ def k1_logits(N, T, C, seed):
     return x.cuda()
 
 
+def timing_row(label, kernel_fn, wall_fn, plain_fn, n_bytes, n_ops, library_fn=None):
+    """The timing numbers of one kernel at one shape (see README: device_us
+    against wall_us)."""
+    dev = device_us(kernel_fn)
+    bnd, by = bound_ms(n_bytes, n_ops)
+    row = dict(
+        device_us=dev, loop_us=loop_us(kernel_fn), wall_us=wall_us(wall_fn),
+        plain_ms=wall_us(plain_fn, n=20) / 1e3, bound_ms=bnd, bound_by=by,
+        share_of_bound=bnd * 1e3 / dev,
+        library_ms=device_us(library_fn) / 1e3 if library_fn else None,
+    )
+    lib = f", library {row['library_ms'] * 1e3:.2f} us" if library_fn else ""
+    print(f"{label}: device {dev:.3f} us (C-entry loop {row['loop_us']:.3f} us), "
+          f"wall {row['wall_us']:.3f} us a call, bound {bnd * 1e3:.3f} us by {by} "
+          f"({row['share_of_bound']:.1%} of it), plain {row['plain_ms'] * 1e3:.1f} us"
+          f"{lib}", flush=True)
+    return row
+
+
 def kernel_parity():
     import torch
 
@@ -102,34 +173,37 @@ def kernel_parity():
     from vse_tpu_torch.video.synth import compose_frames, load_fixture
 
     rows = {}
-    # K1 at the main path's shape ([8 frames x 8 boxes, 80, 69]) and the
-    # 21,249-class heads'
+    # K1 at the main path's shape ([8 frames x 8 boxes, 80, 69]; logits warm
+    # in L2) and the 21,249-class heads' (435 MB: cold in the 50 MB L2)
     k1_err = 0.0
     for i, (N, T, C) in enumerate([(64, 80, 69), (64, 80, 21249)]):
         x = k1_logits(N, T, C, seed=i)
-        best_c, prob_c = k1.argmax_lse_cuda(x)
-        best_p, prob_p = k1.argmax_lse_plain(x)
-        if not torch.equal(best_c, best_p):
-            raise AssertionError(f"K1 {N,T,C}: argmax differs from the plain version")
-        k1_err = max(k1_err, check_close(f"K1 {N,T,C} prob", prob_c, prob_p, 1e-5, 1e-6))
-        ids_c, mask_c, sc_c = k1.collapse(best_c, prob_c)
-        ids_p, mask_p, sc_p = k1.collapse(best_p, prob_p)
-        if not (torch.equal(ids_c, ids_p) and torch.equal(mask_c, mask_p)):
-            raise AssertionError(f"K1 {N,T,C}: ids/mask differ")
-        if not torch.all(sc_c[2:5] == 1.0):
+        ids, mask, sc = k1.greedy_decode_cuda(x)
+        ids_p, mask_p, sc_p = k1.collapse(*k1.argmax_lse_plain(x))
+        if not (torch.equal(ids, ids_p) and torch.equal(mask, mask_p)):
+            raise AssertionError(f"K1 {N,T,C}: ids/mask differ from the plain version")
+        if not torch.all(sc[2:5] == 1.0):
             raise AssertionError("K1: an all-blank row must score 1.0")
-        k1_err = max(k1_err, check_close(f"K1 {N,T,C} scores", sc_c, sc_p, 1e-5, 1e-6))
-        ms = time_ms(lambda: k1.argmax_lse_cuda(x))
-        plain = time_ms(lambda: k1.argmax_lse_plain(x))
-        bnd, by = bound_ms(N * T * C * 4 + N * T * 8, 4.0 * N * T * C)
-        print(f"K1 [{N},{T},{C}]: {ms:.4f} ms (bound {bnd * 1e3:.2f} us by {by}), "
-              f"plain {plain:.4f} ms; ids/mask exact", flush=True)
-        if i == 0:
-            rows["K1"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+        k1_err = max(k1_err, check_close(f"K1 {N,T,C} scores", sc, sc_p, 1e-5, 1e-6))
+        again = k1.greedy_decode_cuda(x)
+        if not all(torch.equal(a, b) for a, b in zip((ids, mask, sc), again)):
+            raise AssertionError(f"K1 {N,T,C}: two runs differ")
+        bufs = k1.alloc_outputs(N, T, x.device)
+        fused = k1.decode_plan(T, C)[0]
+        row = timing_row(
+            f"K1 [{N},{T},{C}] ({'1 launch' if fused else '2 launches'}; "
+            "ids/mask exact, deterministic)",
+            lambda: k1.launch(x, *bufs), lambda: k1.ctc_greedy_decode(x),
+            lambda: k1.collapse(*k1.argmax_lse_plain(x)),
+            N * T * C * 4 + N * T * 5 + N * 4, 4.0 * N * T * C,
+            library_fn=lambda: (torch.max(x, -1), torch.logsumexp(x, -1)),
+        )
+        rows["K1" if i == 0 else "K1_large_c"] = row
     rows["K1"]["max_abs_err"] = k1_err
 
-    # K2 on the fixture's text band (the main path's [32, 104, 1280, 3]),
-    # on random pixels at that shape, and on a ragged shape
+    # K2 on the fixture's text band (the main path's [32, 104, 1280, 3],
+    # warm in L2 as after its upload), on random pixels at that shape, and
+    # on a ragged shape
     bands, recipe = load_fixture()
     y0, y1, x0, x1 = recipe["area"]
     clip = compose_frames(bands, recipe, n_frames=64)
@@ -150,18 +224,24 @@ def kernel_parity():
             raise AssertionError(f"K2 {label}: text_cells differ")
         if not torch.all(got[::32, 2] == 0):
             raise AssertionError(f"K2 {label}: the batch's first diff must be 0")
+        if not torch.equal(got, k2.frame_stats_cuda(fr)):
+            raise AssertionError(f"K2 {label}: two runs differ")
         k2_err = max(k2_err, check_close(f"K2 {label}", got, want, 1e-5, 1e-6))
         print(f"K2 {label} {list(fr.shape)}: stats within rtol 1e-5, text_cells "
-              f"exact (first frame {got[0].tolist()})", flush=True)
+              f"exact, deterministic (first frame {got[0].tolist()})", flush=True)
     T, H, W, _ = band.shape
-    ms = time_ms(lambda: k2.frame_stats_cuda(band))
-    plain = time_ms(lambda: k2.frame_stats_plain(band))
     Hp, Wp = k2.padded_hw(H, W)
-    bnd, by = bound_ms(T * H * W * 3 + T * 16, 20.0 * T * Hp * Wp)
-    print(f"K2 {list(band.shape)}: {ms:.4f} ms (bound {bnd * 1e3:.2f} us by {by}), "
-          f"plain {plain:.4f} ms", flush=True)
-    rows["K2"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                      max_abs_err=k2_err)
+    geo = k2.launch_geometry(T, H, W)
+    partials, out = k2.alloc_outputs(T, geo, band.device)
+    p = k2.ScanParams()
+    print(f"K2 grid {geo.n_parts} x {geo.n_runs} blocks of {geo.threads} threads, "
+          f"run {geo.run} frames", flush=True)
+    rows["K2"] = timing_row(
+        f"K2 {list(band.shape)}", lambda: k2.launch(band, geo, p, partials, out),
+        lambda: k2.scan_stats_u8(band), lambda: k2.frame_stats_plain(band),
+        T * H * W * 3 + T * 16, 20.0 * T * Hp * Wp,
+    )
+    rows["K2"]["max_abs_err"] = k2_err
     return rows
 
 
@@ -259,7 +339,7 @@ def main() -> int:
     phase("main path", t0)
 
     meta = {
-        "K1": ("ctc_argmax_lse", "vse_tpu_torch/csrc/ctc_decode.cu",
+        "K1": ("ctc_greedy_decode", "vse_tpu_torch/csrc/ctc_decode.cu",
                "vse_tpu/kernels/ctc_decode.py:26"),
         "K2": ("keyframe_stats", "vse_tpu_torch/csrc/keyframe.cu",
                "vse_tpu/kernels/keyframe.py:117"),
@@ -267,12 +347,18 @@ def main() -> int:
     kernels = []
     for key, (name, src, replaces) in meta.items():
         r = rows[key]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[key], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
-        })
+            "ms": r["device_us"] / 1e3, "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "device_us": r["device_us"],
+            "wall_us": r["wall_us"], "loop_us": r["loop_us"],
+            "share_of_bound": r["share_of_bound"],
+        }
+        if key == "K1":
+            entry["at_c21249"] = rows["K1_large_c"]
+        kernels.append(entry)
     print(f"[phase] total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

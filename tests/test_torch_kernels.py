@@ -126,7 +126,7 @@ def test_wrappers_use_plain_version_only_on_cpu():
     with pytest.raises(ValueError):
         k2.scan_stats_u8(torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device="meta"))
     with pytest.raises(ValueError):
-        k1.argmax_lse_cuda(torch.zeros((2, 4, 5)))
+        k1.greedy_decode_cuda(torch.zeros((2, 4, 5)))
     with pytest.raises(ValueError):
         k2.frame_stats_cuda(torch.zeros((2, 8, 8, 3), dtype=torch.uint8))
 

@@ -16,6 +16,7 @@ without nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -26,6 +27,8 @@ import tempfile
 import time
 from dataclasses import dataclass
 from typing import List
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -100,11 +103,24 @@ def library() -> ctypes.CDLL:
     int as a 32-bit int and cut the pointer)."""
     lib = ctypes.CDLL(build().path)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vse_ctc_argmax_lse.argtypes = [p, i, i, i, p, p, p]
-    lib.vse_ctc_argmax_lse.restype = i
-    lib.vse_keyframe_stats.argtypes = [p, i, i, i, i, i, i, i, f, f, i, p, p]
+    lib.vse_ctc_greedy_decode.argtypes = [p] + [i] * 6 + [p] * 6
+    lib.vse_ctc_greedy_decode.restype = i
+    lib.vse_keyframe_stats.argtypes = [p, p] + [i] * 12 + [f, f, p, p, p, p]
     lib.vse_keyframe_stats.restype = i
     return lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(t: torch.Tensor):
+    """A context that makes ``t``'s device current, or none when it already
+    is (a launch goes to the current device)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def check(status: int, kernel: str) -> None:

@@ -10,18 +10,21 @@ Per frame of a cropped uint8 subtitle band the scanner computes 4 stats:
   3: mean_lum       mean luminance
 
 ``csrc/keyframe.cu`` computes them from the u8 pixels in one read, with the
-gray conversion and zero padding fused in registers; it replaces the Pallas
-kernel ``vse_tpu/kernels/keyframe.py::_keyframe_kernel`` and the gray+pad
-program around it. ``scan_stats_u8`` launches it for a CUDA tensor and uses
-``frame_stats_plain`` only for a CPU tensor. ``find_spans`` (host) turns
-the [T, 4] stream into keyframe spans.
+gray conversion (table lookups, ``gray_lut``) and zero padding fused in
+registers; it replaces the Pallas kernel
+``vse_tpu/kernels/keyframe.py::_keyframe_kernel`` and the gray+pad program
+around it. ``launch_geometry`` is its grid, kept here so the CPU tests can
+check that it covers every pixel once. ``scan_stats_u8`` launches it for a
+CUDA tensor and uses ``frame_stats_plain`` only for a CPU tensor.
+``find_spans`` (host) turns the [T, 4] stream into keyframe spans.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +102,120 @@ def frame_stats_plain(
     )
 
 
+def gray_lut() -> torch.Tensor:
+    """f32 [3, 256]: the per-byte terms of ``rgb_to_gray`` (``v / 255 * w``
+    for the weights 0.299, 0.587, 0.114), computed with the same f32
+    operations, so that ``(lut[0][r] + lut[1][g]) + lut[2][b]`` in f32 is
+    ``rgb_to_gray`` bit for bit. K2 looks gray up in these tables."""
+    f = torch.arange(256, dtype=torch.float32) / torch.tensor(255.0)
+    return torch.stack([f * 0.299, f * 0.587, f * 0.114])
+
+
+# K2's grid (csrc/keyframe.cu): a strip is one cell row by STRIP pixels and
+# four consecutive threads own its four rows; a block takes threads / 4
+# consecutive strips (row-major over cell rows, then strips) for `run`
+# consecutive frames
+STRIP = 16
+K2_THREADS = 256
+K2_RUN_MAX = 8  # RUN_MAX in csrc/keyframe.cu
+K2_MIN_BLOCKS = 264  # two blocks for each of an H100's 132 SMs
+
+
+@dataclass(frozen=True)
+class Geometry:
+    n_bands: int  # cell rows holding real pixels: ceil(H / segment_height)
+    n_strips: int  # strips per row, up to the pad column x = W when W < Wp
+    threads: int
+    n_parts: int  # blocks per frame run
+    run: int  # frames a block walks
+    n_runs: int
+
+    @property
+    def n_items(self) -> int:
+        return self.n_bands * self.n_strips
+
+    @property
+    def strips_per_block(self) -> int:
+        return self.threads // 4
+
+    def strips(self, part: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(first row, first column) of each strip that block ``part`` of a
+        frame run owns, in the kernel's thread order."""
+        item = part * self.strips_per_block + np.arange(self.strips_per_block)
+        item = item[item < self.n_items]
+        band, strip = np.divmod(item, self.n_strips)
+        return band * 4, strip * STRIP
+
+    def frames(self, run_idx: int, T: int) -> range:
+        return range(run_idx * self.run, min(T, (run_idx + 1) * self.run))
+
+
+@functools.lru_cache(maxsize=64)
+def launch_geometry(
+    T: int, H: int, W: int, p: ScanParams = ScanParams(),
+    threads: int = K2_THREADS, run: Optional[int] = None,
+) -> Geometry:
+    """K2's grid for a [T, H, W, 3] band: (n_parts, n_runs) blocks. Unless
+    given, ``run`` is the longest (up to K2_RUN_MAX) that still leaves
+    K2_MIN_BLOCKS blocks, or 1."""
+    if not (threads % 32 == 0 and 32 <= threads <= 256):
+        raise ValueError(f"K2 takes 32..256 threads in whole warps, got {threads}")
+    _, Wp = padded_hw(H, W, p)
+    n_bands = -(-H // p.segment_height)
+    n_strips = -(-min(W + 1, Wp) // STRIP)
+    n_parts = -(-(n_bands * n_strips) // (threads // 4))
+    if run is None:
+        run = K2_RUN_MAX
+        while run > 1 and n_parts * -(-T // run) < K2_MIN_BLOCKS:
+            run //= 2
+    if not 1 <= run <= K2_RUN_MAX:
+        raise ValueError(f"K2 takes 1 <= run <= {K2_RUN_MAX}, got {run}")
+    return Geometry(n_bands, n_strips, threads, n_parts, run, -(-T // run))
+
+
+# per device: the gray tables and the kernel's ticket counters, made at the
+# first launch on it (outside any CUDA-graph capture). The tickets are zero
+# between launches (the kernel resets them), so K2 launches on one device
+# must not overlap: the main path issues them on one stream.
+_workspace: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _consts(device: torch.device, n_runs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    ws = _workspace.get(device)
+    if ws is None or ws[1].numel() < n_runs:
+        lut = ws[0] if ws is not None else gray_lut().reshape(-1).to(device)
+        ws = (lut, torch.zeros(max(n_runs, 1024), dtype=torch.int32, device=device))
+        _workspace[device] = ws
+    return ws
+
+
+def alloc_outputs(T: int, g: Geometry, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One allocation for K2's f64 partial sums [T, n_parts, 4] and its
+    f32 output [T, 4] (a view into it)."""
+    n_part = T * g.n_parts * 4 * 8
+    buf = torch.empty(n_part + T * 16, dtype=torch.uint8, device=device)
+    partials = buf[:n_part].view(torch.float64)
+    return partials, buf[n_part:].view(torch.float32).view(T, 4)
+
+
+def launch(frames_u8: torch.Tensor, g: Geometry, p: ScanParams,
+           partials: torch.Tensor, out: torch.Tensor) -> None:
+    """One K2 launch into preallocated buffers (``alloc_outputs``)."""
+    T, H, W, _ = frames_u8.shape
+    Hp, Wp = padded_hw(H, W, p)
+    lut, tickets = _consts(frames_u8.device, g.n_runs)
+    vec = W % 16 == 0 and frames_u8.data_ptr() % 16 == 0
+    with _build.on_device(frames_u8):
+        status = _build.library().vse_keyframe_stats(
+            frames_u8.data_ptr(), lut.data_ptr(), T, H, W, Hp, Wp,
+            g.n_strips, g.n_items, g.threads, g.n_parts, g.run, g.n_runs,
+            int(vec), p.edge_threshold, p.moderate_threshold,
+            partials.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+            _build.stream_of(frames_u8),
+        )
+    _build.check(status, "vse_keyframe_stats")
+
+
 def frame_stats_cuda(
     frames_u8: torch.Tensor, p: ScanParams = ScanParams()
 ) -> torch.Tensor:
@@ -111,19 +228,15 @@ def frame_stats_cuda(
         raise ValueError(f"K2 takes [T, H, W, 3], got {tuple(frames_u8.shape)}")
     if not frames_u8.is_contiguous():
         raise ValueError("K2 takes a contiguous band")
+    if (p.segment_height, p.segment_width) != (4, 8):
+        raise ValueError("K2 is built for 4 x 8 cells")
     T, H, W, _ = frames_u8.shape
-    Hp, Wp = padded_hw(H, W, p)
-    out = torch.empty((T, 4), dtype=torch.float32, device=frames_u8.device)
-    lib = _build.library()
-    with torch.cuda.device(frames_u8.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.vse_keyframe_stats(
-            frames_u8.data_ptr(), T, H, W, Hp, Wp,
-            p.segment_height, p.segment_width,
-            p.edge_threshold, p.moderate_threshold, 256,
-            out.data_ptr(), stream,
-        )
-    _build.check(status, "vse_keyframe_stats")
+    if H == 0 or W == 0:
+        raise ValueError(f"K2 takes a non-empty frame, got {H} x {W}")
+    g = launch_geometry(T, H, W, p)
+    partials, out = alloc_outputs(T, g, frames_u8.device)
+    if T:
+        launch(frames_u8, g, p, partials, out)
     return out
 
 
