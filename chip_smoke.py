@@ -8,9 +8,12 @@ Phases, each timed; any failure raises and the script exits non-zero:
 1. environment: the card's name and power limit (nvidia-smi), torch/CUDA
    versions, and whether OpenCV and ninja exist (printed only, never needed);
 2. build: the CUDA kernels of ``vse_tpu_torch/csrc`` with one nvcc call;
-3. kernel parity on the card: K1 (greedy CTC decode) and K2 (keyframe
-   stats) against their plain PyTorch versions on the same inputs, twice
-   (the kernels are deterministic), and each kernel's times at the main
+3. kernel parity on the card: K1 (greedy CTC decode, on f32, f16 and bf16
+   logits) and K2 (keyframe stats) against their plain PyTorch versions on
+   the same inputs, twice (the kernels are deterministic); K2 also on the
+   noisy band (``vse_tpu_torch.video.synth.noisy_band``, rebuilt from its
+   seed), against the JAX package's stats of it committed in
+   ``assets/smoke/noisy_band.npz``; and each kernel's times at the main
    path's shapes: ``device_us``, its own device time (100 launches into
    preallocated buffers captured in a CUDA graph, replayed between CUDA
    events), ``wall_us``, the host-clock cost of one wrapper call as the main
@@ -19,12 +22,23 @@ Phases, each timed; any failure raises and the script exits non-zero:
    is shorter than a call), its device-memory bound and share of it, the
    plain version's wall time and, for K1, the library composite
    ``torch.max`` + ``torch.logsumexp`` (a yardstick the port never calls);
-4. the main path, ``extract --area --mode fast`` for ``en`` through
+4. the main path, ``extract --area --mode fast`` for ``en`` with the
+   default config (word segmentation on) through
    ``SubtitleExtractor(...).run()`` on a 20 s 1280x720 25 fps clip composed
    in memory from ``vse_tpu_torch/assets/smoke``, with the real PP-OCRv3
-   mobile det weights and the exported en rec head. The SRT must equal the
-   committed reference (the JAX package's CLI on the CPU for the same
-   frames) and both kernels must have launched on the path.
+   mobile det weights and the exported en rec head: the keyframe strategy,
+   the scan fed by ``device_prefetch``. The SRT must equal the committed
+   reference (the JAX package's CLI on the CPU for the same frames), K2 must
+   launch once per 32-frame batch and K1 at least once;
+5. the fps path, ``extract`` with no area and the default config, on two
+   no-area clips: the same cues, a corner watermark and a short scene-text
+   line, once with the keyframe clip's cue lengths (the JAX package's auto
+   watermark policy drops those subtitles, ROADMAP fault 6) and once with
+   cues short enough that the subtitles survive the filters. The fps
+   strategy fed by ``device_prefetch``, the filters, word segmentation.
+   Every OCR line before the filters must equal the JAX package's (the same
+   frame and text, a box within 2 px), the SRT must equal its committed
+   reference, K1 must launch once per OCR chunk and K2 never.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -35,6 +49,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import shutil
 import statistics
@@ -168,9 +183,11 @@ def timing_row(label, kernel_fn, wall_fn, plain_fn, n_bytes, n_ops, library_fn=N
 def kernel_parity():
     import torch
 
+    import numpy as np
+
     from vse_tpu_torch.kernels import ctc_decode as k1
     from vse_tpu_torch.kernels import keyframe as k2
-    from vse_tpu_torch.video.synth import compose_frames, load_fixture
+    from vse_tpu_torch.video.synth import SMOKE_FIXTURE, compose_frames, load_fixture, noisy_band
 
     rows = {}
     # K1 at the main path's shape ([8 frames x 8 boxes, 80, 69]; logits warm
@@ -188,6 +205,20 @@ def kernel_parity():
         again = k1.greedy_decode_cuda(x)
         if not all(torch.equal(a, b) for a, b in zip((ids, mask, sc), again)):
             raise AssertionError(f"K1 {N,T,C}: two runs differ")
+        for dt in (torch.float16, torch.bfloat16):
+            xh = x.to(dt)
+            got = k1.greedy_decode_cuda(xh)
+            want = k1.collapse(*k1.argmax_lse_plain(xh))
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"K1 {N,T,C} {dt}: ids/mask differ from the plain version")
+            k1_err = max(k1_err, check_close(f"K1 {N,T,C} {dt} scores", got[2], want[2],
+                                             1e-5, 1e-6))
+            bh = k1.alloc_outputs(N, T, x.device)
+            dev = device_us(lambda: k1.launch(xh, *bh))
+            print(f"K1 [{N},{T},{C}] {str(dt)[6:]}: ids/mask exact, scores within rtol "
+                  f"1e-5; device {dev:.3f} us, bound "
+                  f"{bound_ms(N * T * C * 2 + N * T * 5 + N * 4, 4.0 * N * T * C)[0] * 1e3:.3f} us",
+                  flush=True)
         bufs = k1.alloc_outputs(N, T, x.device)
         fused = k1.decode_plan(T, C)[0]
         row = timing_row(
@@ -229,6 +260,38 @@ def kernel_parity():
         k2_err = max(k2_err, check_close(f"K2 {label}", got, want, 1e-5, 1e-6))
         print(f"K2 {label} {list(fr.shape)}: stats within rtol 1e-5, text_cells "
               f"exact, deterministic (first frame {got[0].tolist()})", flush=True)
+
+    # the noisy band: cells at the text-cell threshold, where only the
+    # reference scan's exact gray gives its text_cells (frame 191 has one)
+    with np.load(os.path.join(SMOKE_FIXTURE, "noisy_band.npz")) as z:
+        jax_stats = torch.from_numpy(z["stats"]).cuda()
+    noisy = torch.from_numpy(noisy_band()).cuda()
+    got = torch.cat([k2.frame_stats_cuda(noisy[i : i + 32]) for i in range(0, len(noisy), 32)])
+    want = torch.cat([k2.frame_stats_plain(noisy[i : i + 32]) for i in range(0, len(noisy), 32)])
+    again = torch.cat([k2.frame_stats_cuda(noisy[i : i + 32]) for i in range(0, len(noisy), 32)])
+    if not (torch.equal(got[:, 1], want[:, 1]) and torch.equal(got[:, 1], jax_stats[:, 1])):
+        raise AssertionError("K2 noisy band: text_cells differ from the plain version or JAX")
+    if not torch.equal(got, again):
+        raise AssertionError("K2 noisy band: two runs differ")
+    if got[190, 1].item() <= 0:
+        raise AssertionError("K2 noisy band: frame 191 lost its text cell")
+    k2_err = max(k2_err, check_close("K2 noisy band", got, want, 1e-5, 1e-6),
+                 check_close("K2 noisy band vs JAX", got, jax_stats, 1e-5, 1e-6))
+    print(f"K2 noisy band {list(noisy.shape)} in batches of 32: text_cells equal to the "
+          f"plain version's and the JAX package's on all {len(noisy)} frames (frame 191: "
+          f"{got[190, 1].item()}), the other stats within rtol 1e-5, deterministic",
+          flush=True)
+    # the gray itself, bit for bit: a one-pixel frame's mean luminance is
+    # its gray / 1024 exactly in both versions (2^16 colours)
+    idx = torch.arange(0, 1 << 24, 256, dtype=torch.int64)
+    rgb = torch.stack([idx >> 16, (idx >> 8) & 255, idx & 255], -1).to(torch.uint8)
+    px = rgb.reshape(-1, 1, 1, 3).cuda()
+    got = k2.frame_stats_cuda(px)
+    if not (torch.equal(got, k2.frame_stats_plain(px))
+            and torch.equal(got[:, 3], k2.rgb_to_gray(rgb).cuda() / 1024.0)):
+        raise AssertionError("K2: the gray of one-pixel frames differs from the plain version")
+    print(f"K2 one-pixel frames of {len(rgb)} colours: stats bit-equal to the plain "
+          "version's, gray bit-exact", flush=True)
     T, H, W, _ = band.shape
     Hp, Wp = k2.padded_hw(H, W)
     geo = k2.launch_geometry(T, H, W)
@@ -245,52 +308,121 @@ def kernel_parity():
     return rows
 
 
-def main_path(card: str):
+def drive(label, clip, area, reference, engine, card, spy=None):
+    """Two runs (cold, warm) of ``SubtitleExtractor(clip, area).run()`` with
+    the default config, the launch counts set to 0 just before each and read
+    just after; both SRTs must equal ``reference``. Returns the warm run's
+    (launches, extractor)."""
     import torch
 
     from vse_tpu_torch.core.config import VseConfig
     from vse_tpu_torch.kernels import ctc_decode as k1
     from vse_tpu_torch.kernels import keyframe as k2
     from vse_tpu_torch.pipeline.extractor import SubtitleExtractor
+
+    cfg = VseConfig(language="en")
+    for run in ("cold", "warm"):
+        ex = SubtitleExtractor(clip, area, cfg, engine=engine, device="cuda")
+        if spy is not None:
+            spy(ex)
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = 0
+        k2.launches = 0
+        srt_path = ex.run()
+        launches = {"K1": k1.launches, "K2": k2.launches}
+        with open(srt_path, encoding="utf-8") as f:
+            got = f.read()
+        secs = {k: round(v, 4) for k, v in ex.pass_seconds.items()}
+        print(f"{label} ({run}) on {card}: pass seconds {secs}, {ex.n_spans} spans, "
+              f"{ex.n_samples} OCR samples, launches {launches}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+        if got != reference:
+            raise AssertionError(
+                f"{label}: SRT differs from the reference:\n--- got\n{got}\n--- want\n{reference}")
+    print(f"{label}: SRT equals the JAX reference ({reference.count('-->')} cues, "
+          "timings and text)", flush=True)
+    return launches, ex
+
+
+def main_path(card: str):
+    """The keyframe strategy (an area) and the fps strategy (no area), each
+    through the entry point with the default config."""
+    from vse_tpu_torch.core.config import VseConfig
     from vse_tpu_torch.pipeline.ocr_engine import OcrEngine
     from vse_tpu_torch.video.synth import SMOKE_FIXTURE, compose_clip, load_fixture, recipe_area
 
-    bands, recipe = load_fixture()
-    with open(os.path.join(SMOKE_FIXTURE, "reference.srt"), encoding="utf-8") as f:
-        reference = f.read()
-    cfg = VseConfig(language="en", mode="fast", word_segmentation=False)
+    def reference(name):
+        with open(os.path.join(SMOKE_FIXTURE, name), encoding="utf-8") as f:
+            return f.read()
+
     t0 = time.perf_counter()
-    engine = OcrEngine(language="en", config=cfg, device="cuda")
+    engine = OcrEngine(language="en", config=VseConfig(language="en"), device="cuda")
     print(f"engine load: {time.perf_counter() - t0:.2f} s", flush=True)
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        bands, recipe = load_fixture()
         clip = compose_clip(bands, recipe, os.path.join(tmp, "smoke.avi"))
+        kf, _ = drive("main path, keyframe strategy", clip, recipe_area(recipe),
+                      reference("reference_keyframe.srt"), engine, card)
         n_batches = -(-len(clip.frames) // 32)
-        for run in ("cold", "warm"):
-            ex = SubtitleExtractor(clip, recipe_area(recipe), cfg, engine=engine,
-                                   device="cuda")
-            torch.cuda.reset_peak_memory_stats()
-            k1.launches = 0
-            k2.launches = 0
-            srt_path = ex.run()
-            launches = {"K1": k1.launches, "K2": k2.launches}
-            with open(srt_path, encoding="utf-8") as f:
-                got = f.read()
-            secs = {k: round(v, 4) for k, v in ex.pass_seconds.items()}
-            print(f"main path ({run}) on {card}: pass seconds {secs}, "
-                  f"{ex.n_spans} spans, {ex.n_samples} OCR samples, launches "
-                  f"{launches}, peak device memory "
-                  f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
-            if got != reference:
-                raise AssertionError(
-                    f"SRT differs from the reference:\n--- got\n{got}\n--- want\n{reference}")
-            if launches["K2"] != n_batches:
-                raise AssertionError(f"K2 launched {launches['K2']} times, want {n_batches}")
-            if launches["K1"] < 1:
-                raise AssertionError("K1 was never launched on the main path")
-    cues = reference.strip().count("-->")
-    print(f"SRT equals the JAX reference ({cues} cues, timings and text)", flush=True)
-    return launches
+        if kf["K2"] != n_batches:
+            raise AssertionError(f"K2 launched {kf['K2']} times, want {n_batches}")
+        if kf["K1"] < 1:
+            raise AssertionError("K1 was never launched on the keyframe path")
+        phase("main path (keyframe)", t0)
+
+        by_path = {"keyframe": kf}
+        for key, label, name in (("fps", "fps path", "fps"),
+                                 ("fps_short", "fps path, short cues", "fps_short")):
+            t0 = time.perf_counter()
+            bands, recipe = load_fixture(recipe=f"recipe_{name}.json")
+            clip = compose_clip(bands, recipe, os.path.join(tmp, f"smoke_{name}.avi"))
+            by_path[key] = fps_path(label, clip, reference(f"reference_{name}.srt"),
+                                    json.loads(reference(f"reference_{name}_raw.json")),
+                                    engine, card)
+            phase(label, t0)
+    launches = {k: sum(p[k] for p in by_path.values()) for k in kf}
+    return launches, by_path
+
+
+def fps_path(label, clip, reference, raw_ref, engine, card):
+    """The fps strategy on a no-area clip. Every OCR line before the filters
+    must equal the JAX package's (``raw_ref``): the same frame and text and
+    a box within 2 px; the SRT must equal ``reference``; K1 must launch once
+    per OCR chunk and K2 never. Returns the warm run's launches."""
+    seen = {}
+
+    def spy(ex):  # keep the OCR records as they reach the filters
+        filt = ex.apply_filters
+
+        def keep_then_filter():
+            seen["raw"] = list(ex.raw_records)
+            filt()
+        ex.apply_filters = keep_then_filter
+
+    fps, ex = drive(label, clip, None, reference, engine, card, spy)
+    raw = [[r.frame_no, list(r.coord), r.text] for r in seen["raw"]]
+    bad = [(r, q) for r, q in zip(raw, raw_ref)
+           if r[0] != q[0] or r[2] != q[2] or max(abs(a - b) for a, b in zip(r[1], q[1])) > 2]
+    if len(raw) != len(raw_ref) or bad:
+        raise AssertionError(
+            f"{label}: {len(raw)} OCR lines before the filters against the JAX package's "
+            f"{len(raw_ref)}; (port, JAX) pairs that differ in frame, text or a box by "
+            f"more than 2 px:\n{bad}")
+    print(f"{label}: all {len(raw)} OCR lines before the filters equal the JAX package's "
+          f"(frame, text, box within 2 px); texts {sorted({r[2] for r in raw})}", flush=True)
+    # every batch of frame_batch frames (the last one padded) is OCRed in
+    # chunks of max_batch_size
+    fb, mb = ex.config.frame_batch, ex.engine.config.max_batch_size
+    n_chunks = math.ceil(ex.n_samples / fb) * math.ceil(fb / mb)
+    print(f"{label}: {len(ex.raw_records)} records kept by the filters; "
+          f"{n_chunks} OCR chunks", flush=True)
+    if fps["K2"] != 0:
+        raise AssertionError(f"{label}: K2 launched {fps['K2']} times")
+    if fps["K1"] != n_chunks:
+        raise AssertionError(f"{label}: K1 launched {fps['K1']} times, want {n_chunks}")
+    return fps
 
 
 def main() -> int:
@@ -334,9 +466,7 @@ def main() -> int:
     rows = kernel_parity()
     phase("kernel parity", t0)
 
-    t0 = time.perf_counter()
-    launches = main_path(card)
-    phase("main path", t0)
+    launches, by_path = main_path(card)
 
     meta = {
         "K1": ("ctc_greedy_decode", "vse_tpu_torch/csrc/ctc_decode.cu",
@@ -349,7 +479,9 @@ def main() -> int:
         r = rows[key]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[key], "max_abs_err": r["max_abs_err"],
+            "launches": launches[key],
+            "launches_by_path": {p: n[key] for p, n in by_path.items()},
+            "max_abs_err": r["max_abs_err"],
             "ms": r["device_us"] / 1e3, "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "device_us": r["device_us"],

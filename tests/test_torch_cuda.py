@@ -7,8 +7,11 @@ no JAX, so it runs on a machine that has only PyTorch:
 
 Tolerances as in chip_smoke.py: ids, masks and text_cells exact; scores
 and float stats rtol 1e-5 / atol 1e-6. Both kernels sum in a fixed order,
-so two runs on the same input are bit-equal.
+so two runs on the same input are bit-equal. K2's gray is checked bit for
+bit through one-pixel frames, whose mean luminance is gray / 1024 exactly.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -18,6 +21,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from vse_tpu_torch.kernels import ctc_decode as k1
 from vse_tpu_torch.kernels import keyframe as k2
+from vse_tpu_torch.pipeline.feed import device_prefetch
+from vse_tpu_torch.video.decode import FrameBatch
+from vse_tpu_torch.video.synth import SMOKE_FIXTURE, noisy_band
 
 pytestmark = pytest.mark.cuda
 
@@ -52,6 +58,24 @@ def test_k1_cuda_matches_plain(cuda, c, t):
     assert torch.all(scores[2:4] == 1.0)
     again = k1.greedy_decode_cuda(x)
     assert all(torch.equal(a, b) for a, b in zip((ids, mask, scores), again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("c", [69, 21249])
+def test_k1_cuda_half_logits_match_plain(cuda, c, dtype):
+    x = logits_with_ties(64, 80, c, seed=c).to(cuda).to(dtype)
+    ids, mask, scores = k1.ctc_greedy_decode(x)
+    ids_p, mask_p, scores_p = k1.collapse(*k1.argmax_lse_plain(x))
+    assert torch.equal(ids, ids_p) and torch.equal(mask, mask_p)
+    torch.testing.assert_close(scores, scores_p, rtol=1e-5, atol=1e-6)
+    assert torch.all(scores[2:4] == 1.0)
+    again = k1.greedy_decode_cuda(x)
+    assert all(torch.equal(a, b) for a, b in zip((ids, mask, scores), again))
+    # an odd start: no row 16-byte aligned
+    y = x.reshape(64 * 80, c)[1:801].reshape(10, 80, c)
+    got = k1.greedy_decode_cuda(y)
+    want = k1.collapse(*k1.argmax_lse_plain(y))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_k1_cuda_unaligned_rows(cuda):
@@ -121,6 +145,75 @@ def test_k2_cuda_matches_plain(cuda, shape):
     assert torch.equal(got, again)
 
 
+def test_k2_gray_is_bit_exact_on_the_card(cuda):
+    """One-pixel frames: mean luminance is the pixel's gray / 1024 exactly
+    on both sides, so K2's gray shows bit for bit (2^20 colours, the rest
+    of the 2^24 by stride)."""
+    for lo in range(0, 1 << 24, 1 << 20):  # 2^16 frames a launch
+        idx = torch.arange(lo, lo + (1 << 20), 16, dtype=torch.int64)
+        rgb = torch.stack([idx >> 16, (idx >> 8) & 255, idx & 255], -1).to(torch.uint8)
+        x = rgb.reshape(-1, 1, 1, 3).to(cuda)
+        got = k2.frame_stats_cuda(x)
+        want = k2.rgb_to_gray(rgb).to(cuda) / 1024.0
+        assert torch.equal(got[:, 3], want)
+        assert torch.equal(got, k2.frame_stats_plain(x))
+        assert torch.equal(got, k2.frame_stats_cuda(x))
+
+
+@pytest.mark.parametrize("band", ["random", "noisy"])
+def test_k2_fma_gray_matches_plain_and_jax_on_bands(cuda, band):
+    if band == "noisy":
+        f = noisy_band()
+        with np.load(os.path.join(SMOKE_FIXTURE, "noisy_band.npz")) as z:
+            jax_stats = torch.from_numpy(z["stats"]).to(cuda)
+    else:
+        f = np.random.default_rng(11).integers(0, 256, (96, 104, 1280, 3)).astype(np.uint8)
+        jax_stats = None
+    x = torch.from_numpy(f).to(cuda)
+    got = torch.cat([k2.frame_stats_cuda(x[i : i + 32]) for i in range(0, len(x), 32)])
+    want = torch.cat([k2.frame_stats_plain(x[i : i + 32]) for i in range(0, len(x), 32)])
+    assert torch.equal(got[:, 1], want[:, 1])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    again = torch.cat([k2.frame_stats_cuda(x[i : i + 32]) for i in range(0, len(x), 32)])
+    assert torch.equal(got, again)
+    if jax_stats is not None:
+        assert torch.equal(got[:, 1], jax_stats[:, 1]) and got[190, 1].item() > 0
+        torch.testing.assert_close(got, jax_stats, rtol=1e-5, atol=1e-6)
+
+
+def distinct_batches(n, shape):
+    """Batches whose every byte depends on the batch and its position."""
+    base = np.arange(int(np.prod(shape)), dtype=np.int64).reshape(shape)
+    for i in range(n):
+        yield FrameBatch(((base * 7 + i * 131) % 251).astype(np.uint8),
+                         np.arange(shape[0]) + 1, np.ones(shape[0], bool))
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("hold", [True, False])
+def test_device_prefetch_equals_a_synchronous_upload(cuda, depth, hold):
+    """20 batches of distinct contents, cropped on the host, through the
+    pinned ring and the side stream. The consumer's stream is kept busy
+    before each read, so the feeder runs ahead and the pinned buffers and
+    freed device batches are reused under pressure: each read must still
+    see its own batch."""
+    shape = (32, 120, 1280, 3)
+    crop = lambda f: f[:, 8:112, :, :]  # noqa: E731
+    hosts = [np.ascontiguousarray(crop(b.frames)) for b in distinct_batches(20, shape)]
+    got, kept = [], []
+    for b, dev in device_prefetch(distinct_batches(20, shape), cuda, depth=depth,
+                                  transform=crop):
+        assert dev.is_cuda and dev.shape == (32, 104, 1280, 3) and dev.is_contiguous()
+        torch.cuda._sleep(20_000_000)  # ~10 ms of device time before the read
+        got.append(dev.double().sum())
+        if hold:
+            kept.append(dev)
+    torch.cuda.synchronize()
+    assert [g.item() for g in got] == [float(h.sum(dtype=np.float64)) for h in hosts]
+    for dev, host in zip(kept, hosts):
+        assert torch.equal(dev, torch.from_numpy(host).to(cuda))
+
+
 @pytest.mark.parametrize("threads,run", [(32, 1), (64, 3), (128, 8), (256, 2)])
 def test_k2_cuda_geometries_agree(cuda, threads, run):
     rng = np.random.default_rng(threads + run)
@@ -135,7 +228,7 @@ def test_k2_cuda_geometries_agree(cuda, threads, run):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
-        k1.greedy_decode_cuda(torch.zeros((2, 3, 4), dtype=torch.float16, device=cuda))
+        k1.greedy_decode_cuda(torch.zeros((2, 3, 4), dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         k1.greedy_decode_cuda(torch.zeros((2, 4, 3), device=cuda).transpose(1, 2))
     with pytest.raises(TypeError):
@@ -145,3 +238,39 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         k2.frame_stats_cuda(torch.zeros((2, 8, 16, 3), dtype=torch.uint8, device=cuda),
                             k2.ScanParams(segment_height=3))
+
+
+def emulated_models(cuda):
+    """The engine's det and rec models, switched to the reference's bf16
+    numerics."""
+    from vse_tpu_torch.models import bf16
+    from vse_tpu_torch.models.crnn import CRNNRecognizer
+    from vse_tpu_torch.models.ppocr_det import PPOCRv3DetMobile
+    from vse_tpu_torch.weights import from_jax_params, load_det_npz, load_rec_flat
+
+    det = PPOCRv3DetMobile()
+    det.load_state_dict(load_det_npz())
+    rec = CRNNRecognizer(68)
+    rec.load_state_dict(from_jax_params(load_rec_flat("en")))
+    return [bf16.emulate(m).to(cuda).eval() for m in (det, rec)]
+
+
+@pytest.mark.parametrize("which", ["det", "rec"])
+def test_graphed_forward_equals_eager_on_the_card(cuda, which):
+    """A graph replay runs the eager forward's kernels: bit-equal outputs,
+    fresh inputs through one captured graph, one graph per shape."""
+    from vse_tpu_torch.models.graphed import GraphedForward
+
+    det, rec = emulated_models(cuda)
+    if which == "det":
+        model, shapes = det, [(2, 96, 160, 3), (1, 64, 128, 3)]
+    else:
+        model, shapes = rec, [(16, 48, 320, 3), (3, 48, 320, 3)]
+    fwd = GraphedForward(model)
+    rng = np.random.default_rng(0)
+    with torch.inference_mode():
+        for shape in shapes + shapes[:1]:  # a second shape, then the first again
+            for _ in range(2):
+                x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+                assert torch.equal(fwd(x), model(x))
+    assert len(fwd.graphs) == 2

@@ -1,9 +1,11 @@
 """K2's gray tables and launch geometry, and K1's output layout, on the CPU.
 
 The CUDA kernels cannot run here, so what surrounds them is checked in
-Python: the gray lookup tables K2 reads (bit-equal to the plain version's
-divide-and-multiply over every colour, and to the JAX package's eager
-``rgb_to_gray``), K2's grid (every frame row, pixel and frame owned once),
+Python: the source-order gray ``rgb_to_gray_eager`` (bit-equal to numpy's
+f32 divide-multiply-add in source order over every colour, and to the JAX
+package's eager ``rgb_to_gray``; the scan's FMA gray and K2's table are
+checked in ``test_torch_kernel_repairs.py``), K2's grid (every frame row,
+pixel and frame owned once),
 a numpy walk of K2's strip algorithm over that grid against
 ``frame_stats_plain``, and K1's one-allocation output layout.
 
@@ -21,20 +23,20 @@ from vse_tpu_torch.kernels import ctc_decode as k1
 from vse_tpu_torch.kernels import keyframe as k2
 
 
-def lut_gray(lut: np.ndarray, rgb: np.ndarray) -> np.ndarray:
-    """K2's gray: (R[r] + G[g]) + B[b], each add rounded to f32."""
-    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
-    return (lut[0][r] + lut[1][g]) + lut[2][b]
+def source_order_gray(rgb: np.ndarray) -> np.ndarray:
+    """(r/255*.299 + g/255*.587) + b/255*.114, every operation in f32."""
+    f = rgb.astype(np.float32) / np.float32(255.0)
+    w = [np.float32(v) for v in (0.299, 0.587, 0.114)]
+    return (f[..., 0] * w[0] + f[..., 1] * w[1]) + f[..., 2] * w[2]
 
 
 def test_gray_lut_is_rgb_to_gray_on_every_colour():
-    lut = k2.gray_lut().numpy()
-    assert lut.shape == (3, 256) and lut.dtype == np.float32
+    """The source-order gray on all 2^24 colours."""
     for hi in range(4):  # 2^24 colours in four slices of 2^22
         idx = torch.arange(hi << 22, (hi + 1) << 22, dtype=torch.int64)
         rgb = torch.stack([idx >> 16, (idx >> 8) & 255, idx & 255], -1).to(torch.uint8)
-        want = k2.rgb_to_gray(rgb).numpy()
-        got = lut_gray(lut, rgb.numpy())
+        got = k2.rgb_to_gray_eager(rgb).numpy()
+        want = source_order_gray(rgb.numpy())
         np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
@@ -42,8 +44,17 @@ def test_gray_lut_matches_jax_eager_gray():
     rng = np.random.default_rng(0)
     rgb = rng.integers(0, 256, (65536, 3)).astype(np.uint8)
     want = np.asarray(jax_keyframe.rgb_to_gray(jnp.asarray(rgb)))
-    got = lut_gray(k2.gray_lut().numpy(), rgb)
+    got = k2.rgb_to_gray_eager(torch.from_numpy(rgb)).numpy()
     assert np.count_nonzero(got.view(np.uint32) != want.view(np.uint32)) == 0
+
+
+def scan_gray(rgb: np.ndarray) -> np.ndarray:
+    """K2's gray: x' = scan_lut[v], then fma(b', .114, fma(r', .299,
+    g' * .587)), each FMA done in f64 and rounded once to f32."""
+    x = k2.scan_lut().numpy()[rgb.astype(np.int64)]
+    s = x[..., 1] * np.float32(0.587)
+    s = (x[..., 0].astype(np.float64) * float(np.float32(0.299)) + s).astype(np.float32)
+    return (x[..., 2].astype(np.float64) * float(np.float32(0.114)) + s).astype(np.float32)
 
 
 GEOMETRY_CASES = [
@@ -102,11 +113,10 @@ def emulate_k2(frames: np.ndarray, g, p=k2.ScanParams()) -> np.ndarray:
     own), f32 sums per strip, f64 partials per block summed in part order."""
     T, H, W, _ = frames.shape
     Hp, Wp = k2.padded_hw(H, W, p)
-    lut = k2.gray_lut().numpy()
     rows, cols = g.n_bands * 4, g.n_strips * k2.STRIP
     gray = np.zeros((T, rows, cols + 1), np.float32)  # column 0: x = -1
     w = min(W, cols)
-    gray[:, :H, 1 : w + 1] = lut_gray(lut, frames[:, :, :w])
+    gray[:, :H, 1 : w + 1] = scan_gray(frames[:, :, :w])
     partials = np.zeros((T, g.n_parts, 4), np.float64)
     thr = np.float32(p.edge_threshold)
     for run_idx in range(g.n_runs):

@@ -1,12 +1,13 @@
 """Parity of the port's image ops, DB postprocess and host modules with the
 JAX package, on the same numpy inputs.
 
-Tolerances: the port computes in f32. Where the reference also runs f32
-(crops of float frames, DB postprocess, ink rows) crops agree within 1e-3
-gray levels, boxes within 1e-3 px, scores 1e-5, and integer outputs
-(valid, ink rows, spans, SRTs) exactly. The reference's letterbox always
-rounds through bf16, so it is held within 2 gray levels (normalized) and
-the port's letterbox within 1e-4 of a float64 numpy resample.
+Tolerances: where the reference runs f32 (crops of float frames, DB
+postprocess, ink rows) crops agree within 1e-3 gray levels, boxes within
+1e-3 px, scores 1e-5, and integer outputs (valid, ink rows, spans, SRTs)
+exactly. On uint8 frames the reference rounds through bf16 and the port
+reproduces those roundings: its letterbox equals the jitted reference
+exactly and lies within 1e-4 of a float64 numpy resample with the same
+roundings; its crops of uint8 frames equal the reference's exactly.
 """
 
 import dataclasses
@@ -37,25 +38,30 @@ from vse_tpu_torch.post import dedup
 from vse_tpu_torch.post.records import RawRecord
 from vse_tpu_torch.post.srt import SrtFile, SrtItem
 
-GRAY = 1.0 / 255.0 / 0.229  # one gray level in det-normalized units (max)
 
 
 def test_letterbox_matches_float64_resample_and_jax():
     rng = np.random.default_rng(0)
     f = rng.integers(0, 256, (2, 45, 70, 3)).astype(np.uint8)
     got, inv = image.letterbox_matmul(torch.from_numpy(f), 64, 96)
-    ref, ref_inv = jax_image.letterbox_matmul(jnp.asarray(f), 64, 96)
+    _, ref_inv = jax_image.letterbox_matmul(jnp.asarray(f), 64, 96)
+    ref = jax.jit(lambda x: jax_image.letterbox_matmul(x, 64, 96)[0])(jnp.asarray(f))
     assert inv == tuple(ref_inv)
     nh, nw = round(45 * min(64 / 45, 96 / 70)), 96
-    wy = image.tent_matrix(nh, 45).double().numpy()
-    wx = image.tent_matrix(nw, 70).double().numpy()
-    exact = np.einsum("oh,bhwc,pw->bopc", wy, f.astype(np.float64), wx)
+
+    def bf16(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).double().numpy()
+
+    wy = bf16(image.tent_matrix(nh, 45).numpy())
+    wx = bf16(image.tent_matrix(nw, 70).numpy())
+    mid = bf16(np.einsum("oh,bhwc->bowc", wy, f.astype(np.float64)))
+    exact = np.einsum("bowc,pw->bopc", mid, wx)
     mean, std = np.array(image.IMAGENET_MEAN), np.array(image.IMAGENET_STD)
     exact = (exact / 255.0 - mean) / std
     got = got.numpy()
     np.testing.assert_allclose(got[:, :nh, :nw], exact, atol=1e-4)
     np.testing.assert_allclose(got[:, nh:], np.broadcast_to(-mean / std, got[:, nh:].shape), atol=1e-6)
-    np.testing.assert_allclose(got, np.asarray(ref), atol=2 * GRAY)
+    np.testing.assert_array_equal(got, np.asarray(ref))
 
 
 @pytest.mark.parametrize("h,window", [(40, 288), (60, 24)])
@@ -73,6 +79,22 @@ def test_crop_boxes_windowed_matches_jax(h, window):
     ref = np.asarray(crop(jnp.asarray(frames), jnp.asarray(boxes)))
     assert got.shape == ref.shape == (2, 3, 12, 40, 3)
     np.testing.assert_allclose(got, ref, atol=1e-3, rtol=0)
+
+
+def test_crop_boxes_windowed_uint8_matches_jax():
+    """uint8 frames take the bf16 path in both packages."""
+    rng = np.random.default_rng(7)
+    frames = rng.integers(0, 256, (2, 300, 400, 3)).astype(np.uint8)
+    boxes = np.array([
+        [[5.3, 3.7, 380.2, 40.9], [10.0, 200.5, 140.0, 299.0]],
+        [[1.0, 2.0, 399.0, 19.5], [50.5, 110.25, 352.0, 131.0]],
+    ], np.float32)
+    got = image.crop_boxes_windowed(torch.from_numpy(frames), torch.from_numpy(boxes), 48, 320).numpy()
+    crop = jax.jit(jax.vmap(jax.vmap(
+        lambda f, b: jax_image.crop_axis_aligned_matmul_windowed(f, b, 48, 320),
+        in_axes=(None, 0))))
+    ref = np.asarray(crop(jnp.asarray(frames), jnp.asarray(boxes)))
+    np.testing.assert_array_equal(got, ref)
 
 
 def ink_crops(seed):
@@ -109,6 +131,34 @@ def test_expand_boxes_y_matches_jax():
     np.testing.assert_allclose(
         ocr_engine.expand_boxes_y(torch.from_numpy(b), 0.45, 90).numpy(),
         np.asarray(jax_engine._expand_boxes_y(jnp.asarray(b), 0.45, 90)), atol=1e-5)
+
+
+def test_tight_crop_boxes_bit_equal_to_jitted_jax():
+    """The crop stage's box maths as the reference's jitted program runs it
+    (its multiply-adds fused, its divisions by constants turned into
+    multiplies): expanded boxes and ink-refined boxes exactly equal, on
+    uint8 frames with random boxes."""
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, (2, 720, 320, 3)).astype(np.uint8)
+    for y in range(300, 700, 40):  # striped text rows for the refinement to find
+        frames[:, y : y + 12, 40:280:3] = 250
+    x0, y0 = rng.uniform(0, 150, (2, 64)), rng.uniform(300, 650, (2, 64))
+    boxes = np.stack([x0, y0, x0 + rng.uniform(20, 160, (2, 64)),
+                      np.minimum(y0 + rng.uniform(10, 60, (2, 64)), 719)], -1).astype(np.float32)
+    cfg = JaxConfig(language="en")
+
+    def reference(f, b):
+        cb = jax_engine._expand_boxes_y(b, cfg.rec_crop_expand_y, 720)
+        crops = jax.vmap(lambda fr, bb: jax.vmap(
+            lambda one: jax_image.crop_axis_aligned_matmul_windowed(fr, one, 48, 320))(bb))(f, cb)
+        return cb, jax_image.refine_boxes_ink(crops, cb, cfg.rec_crop_tight_margin, 720)
+
+    want_cb, want = (np.asarray(a) for a in jax.jit(reference)(jnp.asarray(frames), jnp.asarray(boxes)))
+    cb = ocr_engine.expand_boxes_y(torch.from_numpy(boxes), cfg.rec_crop_expand_y, 720)
+    crops = image.crop_boxes_windowed(torch.from_numpy(frames), cb, 48, 320)
+    got = image.refine_boxes_ink(crops, cb, cfg.rec_crop_tight_margin, 720)
+    np.testing.assert_array_equal(cb.numpy(), want_cb)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def prob_maps():

@@ -1,18 +1,44 @@
-"""Make the fixture that ``chip_smoke.py`` drives through the PyTorch port.
+"""Make the fixtures that ``chip_smoke.py`` drives through the PyTorch port.
 
 Writes ``vse_tpu_torch/assets/smoke/``:
 
-  bands.npz      three uint8 RGB text bands (1280 x 104, white text with a
-                 black outline on the clip's plain background), rendered with
-                 PIL and DejaVu Sans at 36 px
-  recipe.json    the clip: 1280x720, 25 fps, 500 frames (20 s), three cues
-                 with gaps, the band's origin and the subtitle area
-  reference.srt  the JAX package's SRT for that clip: the clip is written
-                 losslessly (FFV1) and run through
-                 ``python -m vse_tpu.cli extract CLIP --area 600,704,0,1280
-                 --mode fast --language en --no-word-segmentation`` on the CPU
+  bands.npz       three uint8 RGB text bands (1280 x 104, white text with a
+                  black outline on the clip's plain background), rendered
+                  with PIL and DejaVu Sans at 36 px
+  recipe.json     the keyframe clip: 1280x720, 25 fps, 500 frames (20 s),
+                  three cues with gaps, the band's origin and the subtitle
+                  area
+  bands_fps.npz   two small bands: a corner watermark ("VSE TV") and a
+                  scene-text sign ("CITY CAFE")
+  recipe_fps.json the no-area clip: the keyframe clip's three cues, the
+                  watermark on every frame at the top right, the sign
+                  mid-frame on frames 201-240, and no subtitle area
+  recipe_fps_short.json  the no-area clip with each cue cut to 56 frames
+                  (7 samples at stride 8), short enough that the auto
+                  watermark policy keeps the subtitles
+  noisy_band.npz  the JAX package's scan stats of the noisy band
+                  (``vse_tpu_torch.video.synth.noisy_band``), computed by
+                  ``vse_tpu.kernels.keyframe.scan_stats_u8`` in batches of 32
 
-Run it with JAX on the CPU (it needs PIL, OpenCV and the en rec head):
+and the JAX package's SRTs for those clips, each clip written losslessly
+(FFV1) and run through its CLI on the CPU:
+
+  reference.srt           extract CLIP --area 600,704,0,1280 --mode fast
+                          --language en --no-word-segmentation
+  reference_keyframe.srt  extract CLIP --area 600,704,0,1280 --mode fast
+                          --language en (word segmentation on, the default)
+  reference_fps.srt       extract CLIP_FPS --language en (no area: the fps
+                          strategy, the filters, word segmentation)
+  reference_fps_raw.json  the raw OCR records of that run before the
+                          filters, [frame_no, [xmin, xmax, ymin, ymax],
+                          text] each (``SubtitleExtractor.
+                          extract_frame_by_fps`` with the default config)
+  reference_fps_short.srt, reference_fps_short_raw.json
+                          the same two for the short-cue clip
+
+Band files that exist are reused as committed (PIL renders them only when
+they are missing). Run it with JAX on the CPU (it needs PIL, OpenCV and the
+en rec head):
 
     JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py
 """
@@ -43,18 +69,80 @@ CUES = [
     ("a second line of text comes here", 176, 300),
     ("and this is the last cue of the clip", 351, 450),
 ]
+# the no-area clip's extra lines: (band, text, width x height, origin [y, x],
+# first, last). At stride 8 (25 fps // 3 a second) the watermark is on all
+# 63 sampled frames, the sign on 5.
+# the short-cue clip: each cue's first 56 frames. Three cues of 7 samples
+# unite into one coordinate group of 21 records with 3 texts, which the
+# auto watermark policy keeps (it drops a group of >= 10 records with at
+# most a tenth as many distinct texts).
+SHORT = 56
+EXTRAS = [
+    ("watermark", "VSE TV", (160, 48), [24, 1080], 1, N),
+    ("scene", "CITY CAFE", (240, 48), [330, 520], 201, 240),
+]
 
 
-def render_band(text: str) -> np.ndarray:
+def render_band(text: str, w: int = W, h: int = BAND_H, y: int = 30) -> np.ndarray:
     from PIL import Image, ImageDraw, ImageFont
 
     font = ImageFont.truetype(FONT, 36)
-    img = Image.new("RGB", (W, BAND_H), BG)
+    img = Image.new("RGB", (w, h), BG)
     d = ImageDraw.Draw(img)
     tw = d.textlength(text, font=font)
-    d.text(((W - tw) // 2, 30), text, font=font, fill=(255, 255, 255),
+    d.text(((w - tw) // 2, y), text, font=font, fill=(255, 255, 255),
            stroke_width=2, stroke_fill=(0, 0, 0))
     return np.asarray(img, np.uint8)
+
+
+def load_or_render(name: str, render) -> dict:
+    path = os.path.join(OUT, name)
+    if os.path.exists(path):
+        with np.load(path) as z:
+            return {k: np.asarray(z[k]) for k in z.files}
+    bands = render()
+    np.savez_compressed(path, **bands)
+    return bands
+
+
+def write_json(name: str, obj: dict) -> None:
+    with open(os.path.join(OUT, name), "w", encoding="utf-8") as f:
+        json.dump(obj, f, indent=1)
+        f.write("\n")
+
+
+def jax_reference(frames: np.ndarray, out_name: str, *flags: str) -> None:
+    """Run the JAX package's CLI on the clip and keep its SRT."""
+    from vse_tpu.cli import main as vse_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "smoke.avi")
+        write_lossless(frames, clip)
+        rc = vse_main(["extract", clip, *flags])
+        if rc != 0:
+            raise SystemExit(f"vse_tpu.cli extract returned {rc}")
+        shutil.copyfile(os.path.join(tmp, "smoke.srt"), os.path.join(OUT, out_name))
+    with open(os.path.join(OUT, out_name), encoding="utf-8") as f:
+        print(f"--- {out_name}\n{f.read()}")
+
+
+def jax_fps_records(frames: np.ndarray, out_name: str) -> None:
+    """The JAX extractor's fps-strategy records of the clip, before the
+    filters."""
+    from vse_tpu.core.config import VseConfig
+    from vse_tpu.pipeline.extractor import SubtitleExtractor
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "smoke.avi")
+        write_lossless(frames, clip)
+        ex = SubtitleExtractor(clip, None, VseConfig(language="en"))
+        ex.extract_frame_by_fps()
+    records = [[r.frame_no, list(r.coord), r.text] for r in ex.raw_records]
+    with open(os.path.join(OUT, out_name), "w", encoding="utf-8") as f:
+        json.dump(records, f, ensure_ascii=False)
+        f.write("\n")
+    print(f"--- {out_name}: {len(records)} records, texts "
+          f"{sorted(set(r[2] for r in records))}")
 
 
 def write_lossless(frames: np.ndarray, path: str) -> None:
@@ -73,38 +161,49 @@ def write_lossless(frames: np.ndarray, path: str) -> None:
 
 
 def main() -> None:
-    from vse_tpu_torch.video.synth import compose_frames
+    from vse_tpu_torch.video.synth import compose_frames, noisy_band
 
     os.makedirs(OUT, exist_ok=True)
-    bands = {f"band{i}": render_band(t) for i, (t, _, _) in enumerate(CUES)}
+    bands = load_or_render("bands.npz", lambda: {
+        f"band{i}": render_band(t) for i, (t, _, _) in enumerate(CUES)})
+    cues = [{"band": f"band{i}", "text": t, "first": a, "last": b}
+            for i, (t, a, b) in enumerate(CUES)]
     recipe = {
         "width": W, "height": H, "fps": FPS, "n_frames": N,
         "background": list(BG), "band_origin": [BAND_Y, 0],
-        "area": [BAND_Y, BAND_Y + BAND_H, 0, W],
-        "cues": [
-            {"band": f"band{i}", "text": t, "first": a, "last": b}
-            for i, (t, a, b) in enumerate(CUES)
-        ],
+        "area": [BAND_Y, BAND_Y + BAND_H, 0, W], "cues": cues,
     }
-    np.savez_compressed(os.path.join(OUT, "bands.npz"), **bands)
-    with open(os.path.join(OUT, "recipe.json"), "w", encoding="utf-8") as f:
-        json.dump(recipe, f, indent=1)
-        f.write("\n")
+    write_json("recipe.json", recipe)
+    extras = load_or_render("bands_fps.npz", lambda: {
+        name: render_band(text, w, h, 4) for name, text, (w, h), *_ in EXTRAS})
+    recipe_fps = dict(recipe, band_files=["bands.npz", "bands_fps.npz"], cues=cues + [
+        {"band": name, "text": text, "first": a, "last": b, "origin": origin}
+        for name, text, _, origin, a, b in EXTRAS])
+    del recipe_fps["area"]
+    write_json("recipe_fps.json", recipe_fps)
+    recipe_short = dict(recipe_fps, cues=[
+        dict(c, last=c["first"] + SHORT - 1) if c["band"].startswith("band") else c
+        for c in recipe_fps["cues"]])
+    write_json("recipe_fps_short.json", recipe_short)
 
-    from vse_tpu.cli import main as vse_main
+    from vse_tpu.kernels.keyframe import scan_stats_u8
 
-    with tempfile.TemporaryDirectory() as tmp:
-        clip = os.path.join(tmp, "smoke.avi")
-        write_lossless(compose_frames(bands, recipe), clip)
-        area = ",".join(str(v) for v in recipe["area"])
-        rc = vse_main(["extract", clip, "--area", area, "--mode", "fast",
-                       "--language", "en", "--no-word-segmentation"])
-        if rc != 0:
-            raise SystemExit(f"vse_tpu.cli extract returned {rc}")
-        shutil.copyfile(os.path.join(tmp, "smoke.srt"),
-                        os.path.join(OUT, "reference.srt"))
-    with open(os.path.join(OUT, "reference.srt"), encoding="utf-8") as f:
-        print(f.read())
+    band = noisy_band()
+    stats = np.concatenate([scan_stats_u8(band[i : i + 32]) for i in range(0, len(band), 32)])
+    np.savez_compressed(os.path.join(OUT, "noisy_band.npz"), stats=stats)
+
+    area = ",".join(str(v) for v in recipe["area"])
+    frames = compose_frames(bands, recipe)
+    jax_reference(frames, "reference.srt", "--area", area, "--mode", "fast",
+                  "--language", "en", "--no-word-segmentation")
+    jax_reference(frames, "reference_keyframe.srt", "--area", area, "--mode", "fast",
+                  "--language", "en")
+    frames_fps = compose_frames({**bands, **extras}, recipe_fps)
+    jax_reference(frames_fps, "reference_fps.srt", "--language", "en")
+    jax_fps_records(frames_fps, "reference_fps_raw.json")
+    frames_short = compose_frames({**bands, **extras}, recipe_short)
+    jax_reference(frames_short, "reference_fps_short.srt", "--language", "en")
+    jax_fps_records(frames_short, "reference_fps_short_raw.json")
 
 
 if __name__ == "__main__":

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Profile one warm run of the port's main path on one CUDA card.
+"""Profile one warm run of one of the port's paths on one CUDA card.
 
-    python3 tools/profile_torch_main_path.py [--out chiprun_out/profile_main_path.json]
+    python3 tools/profile_torch_main_path.py [--path keyframe|fps] \\
+        [--out TRACE.json]
 
-Drives ``SubtitleExtractor.run()`` (``extract --area --mode fast``, en) on
-the smoke clip of ``vse_tpu_torch/assets/smoke`` (20 s of 1280x720 at
-25 fps, composed in memory) twice: a cold run, then a warm run under
-``torch.profiler`` with CPU and CUDA activities. Prints the card's name and
+Drives ``SubtitleExtractor.run()`` with the default config (en, mode fast,
+word segmentation on) on a smoke clip of ``vse_tpu_torch/assets/smoke``
+(20 s of 1280x720 at 25 fps, composed in memory): ``keyframe`` (default)
+the clip of ``recipe.json`` with its subtitle area (``extract --area``),
+``fps`` the no-area clip of ``recipe_fps.json`` (``extract`` with no area).
+Two runs: a cold run, then a warm run under ``torch.profiler`` with CPU and
+CUDA activities. Prints the card's name and
 power limit, the warm run's pass seconds, the 15 device ops (kernels and
 copies) with the most device time, and the device-busy share: the union of the device ops'
 intervals over the profiled wall time. The Chrome trace goes to ``--out``
@@ -49,8 +53,11 @@ def busy_us(intervals) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "profile_main_path.json"))
+    ap.add_argument("--path", choices=["keyframe", "fps"], default="keyframe")
+    ap.add_argument("--out", default=None,
+                    help="trace path (default chiprun_out/profile_<path>.json)")
     args = ap.parse_args()
+    out = args.out or os.path.join(ROOT, "chiprun_out", f"profile_{args.path}.json")
     sys.path.insert(0, ROOT)
     import torch
     from torch.autograd import DeviceType
@@ -69,8 +76,9 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    bands, recipe = load_fixture()
-    cfg = VseConfig(language="en", mode="fast", word_segmentation=False)
+    bands, recipe = load_fixture(recipe="recipe.json" if args.path == "keyframe"
+                                 else "recipe_fps.json")
+    cfg = VseConfig(language="en")
     engine = OcrEngine(language="en", config=cfg, device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
         clip = compose_clip(bands, recipe, os.path.join(tmp, "smoke.avi"))
@@ -82,7 +90,7 @@ def main() -> int:
             ex.run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e6
-    print(f"warm run: pass seconds { {k: round(v, 4) for k, v in ex.pass_seconds.items()} }, "
+    print(f"{args.path} path, warm run: pass seconds { {k: round(v, 4) for k, v in ex.pass_seconds.items()} }, "
           f"{wall / 1e6:.4f} s under the profiler", flush=True)
 
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -101,9 +109,9 @@ def main() -> int:
     for e in rows[:15]:
         t = device_time(e)
         print(f"{e.key[:60]:<60} {e.count:>6} {t / 1e3:>10.3f} {t / total:>7.1%}")
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    prof.export_chrome_trace(args.out)
-    print(f"trace: {os.path.relpath(args.out, ROOT)}", flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    prof.export_chrome_trace(out)
+    print(f"trace: {os.path.relpath(out, ROOT)}", flush=True)
     return 0
 
 

@@ -33,13 +33,22 @@ class VseConfig:
     language: str = "ch"
     # Recognition mode (reference backend/config.py:54)
     mode: Mode = Mode.FAST
+    # Emit a .txt transcript next to the .srt (reference backend/config.py:56)
+    generate_txt: bool = False
     # Frames per det batch (reference backend/config.py:60)
     max_batch_size: int = 10
-    # Frames sampled per second inside keyframe spans (reference
-    # backend/config.py:64)
+    # Frames sampled per second of video in fps mode, and inside keyframe
+    # spans (reference backend/config.py:64)
     extract_frequency: int = 3
-    # Upload-band margin around the area (reference backend/config.py:70)
+    # Coordinate-similarity tolerances for watermark unification
+    # (reference backend/config.py:66-68)
+    tolerant_pixel_y: int = 50
+    tolerant_pixel_x: int = 100
+    # Scene-text filter band expansion, and the upload-band margin around
+    # an area (reference backend/config.py:70)
     subtitle_area_deviation_pixel: int = 50
+    # Top-N candidate watermark areas (reference backend/config.py:71)
+    watermark_area_num: int = 5
     # Dedup similarity threshold, percent (reference backend/config.py:76)
     threshold_text_similarity: int = 80
     # Drop OCR lines below this confidence, percent (reference backend/config.py:78)
@@ -50,12 +59,11 @@ class VseConfig:
     # Keep/drop keyframe-timeline cues with no recognized text
     # (reference backend/config.py:87)
     delete_empty_timestamp: bool = True
-    # Re-segment words / punctuation fixes (reference backend/config.py:89);
-    # not ported yet, so the port refuses True
+    # Re-segment words / punctuation fixes (reference backend/config.py:89)
     word_segmentation: bool = True
 
     # --- device-pipeline knobs (no reference equivalent) ---
-    # Frames per OCR batch in the keyframe pass.
+    # Frames per OCR batch (fps strategy and the keyframe OCR pass).
     frame_batch: int = 8
     # Max text boxes per frame (fixed output shapes).
     max_boxes_per_frame: int = 8

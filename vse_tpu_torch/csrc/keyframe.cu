@@ -11,21 +11,25 @@
 //                   and frame 0 is its own prev (so the first diff of every
 //                   batch is 0, as in the reference)
 //   3 mean_lum      mean g
-// where g = (r/255*0.299 + g/255*0.587) + b/255*0.114 in f32, and every mean
-// runs over the band zero-padded to [Hp, Wp] (H to a multiple of 8, W to
-// 128). When W < Wp the zero pad puts an edge at x = W; stats 0 and 1 count
-// it, as the reference does.
+// where g is the gray of the reference's jitted scan,
+//   g = fma(b', 0.114, fma(r', 0.299, g' * 0.587)),  x' = u8 * f32(1/255),
+// each product and sum rounded once to f32 (XLA contracts the source's
+// (r'*.299 + g'*.587) + b'*.114 into these two FMAs), and every mean runs
+// over the band zero-padded to [Hp, Wp] (H to a multiple of 8, W to 128).
+// When W < Wp the zero pad puts an edge at x = W; stats 0 and 1 count it,
+// as the reference does.
 //
 // What bounds it on the H100: bytes. The band is read once (3*T*H*W bytes)
 // and 16 bytes per frame are written: the main path's [32, 104, 1280, 3]
 // batch needs 3.8 us at 3.35 TB/s. The arithmetic is ~15 operations a pixel.
 //
 // Design (launch geometry in kernels/keyframe.py::launch_geometry):
-// - Gray from three 256-entry f32 tables in shared memory (gray_lut() in
-//   kernels/keyframe.py), one per channel, summed (R + G) + B with
-//   round-to-nearest adds: bit-equal to the plain version's divide and
-//   multiply, at 3 lookups and 2 adds a pixel. A one-ulp change in gray
-//   could flip gx > 0.08 and move text_cells by a whole cell.
+// - Gray from one 256-entry f32 table in shared memory (scan_lut() in
+//   kernels/keyframe.py: x' = u8 * f32(1/255) for every byte), then
+//   __fmul_rn(g', .587f) and two __fmaf_rn: the jitted reference's gray bit
+//   for bit, with no contraction left to the compiler, at 3 lookups, a
+//   multiply and 2 FMAs a pixel. A one-ulp change in gray could flip
+//   gx > 0.08 and move text_cells by a whole cell.
 // - A strip is one cell row (4 rows) by 16 pixels, two whole cells. Four
 //   consecutive lanes own its four rows, one each, so a warp covers 8
 //   strips: 4 rows x 384 contiguous bytes, read as 16-byte loads when rows
@@ -59,7 +63,8 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float gray_px(const float* lut, unsigned r,
                                          unsigned g, unsigned b) {
-  return __fadd_rn(__fadd_rn(lut[r], lut[256 + g]), lut[512 + b]);
+  return __fmaf_rn(lut[b], 0.114f,
+                   __fmaf_rn(lut[r], 0.299f, __fmul_rn(lut[g], 0.587f)));
 }
 
 // Gray of one row of a strip (16 pixels); 0 for x >= W or an invalid row.
@@ -113,11 +118,11 @@ keyframe_stats_kernel(const uint8_t* __restrict__ frames,
                       float edge_thr, float moderate_thr,
                       double* __restrict__ partials, int* __restrict__ tickets,
                       float* __restrict__ out) {
-  __shared__ float lut[768];
+  __shared__ float lut[256];
   __shared__ double red[RUN_MAX][MAX_WARPS][4];
   __shared__ int is_last;
 
-  for (int k = threadIdx.x; k < 768; k += blockDim.x) lut[k] = lut_g[k];
+  for (int k = threadIdx.x; k < 256; k += blockDim.x) lut[k] = lut_g[k];
   __syncthreads();
 
   // four consecutive lanes own the four rows of one strip
@@ -243,7 +248,7 @@ keyframe_stats_kernel(const uint8_t* __restrict__ frames,
 
 }  // namespace
 
-// frames: u8 [T, H, W, 3]; lut: f32 [768] (gray_lut); partials: f64
+// frames: u8 [T, H, W, 3]; lut: f32 [256] (scan_lut); partials: f64
 // [T, n_parts, 4]; tickets: int32 [n_runs], zero on entry and on return;
 // out: f32 [T, 4]. Grid (n_parts, n_runs) of `threads` threads; vec selects
 // 16-byte loads (W % 16 == 0 and a 16-byte aligned band).

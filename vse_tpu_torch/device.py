@@ -19,7 +19,9 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
 
     On CUDA this also pins float32 math to full precision: cuDNN would run
     f32 convolutions (and RNNs) in TF32 by default, which keeps ~3 decimal
-    digits and is not the f32 reference the port is held against."""
+    digits, while the port's emulation of the reference's bf16 models
+    (``models/bf16.py``) needs the f32 sums of bf16 values that the
+    reference computes."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

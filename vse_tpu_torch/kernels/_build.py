@@ -103,7 +103,7 @@ def library() -> ctypes.CDLL:
     int as a 32-bit int and cut the pointer)."""
     lib = ctypes.CDLL(build().path)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vse_ctc_greedy_decode.argtypes = [p] + [i] * 6 + [p] * 6
+    lib.vse_ctc_greedy_decode.argtypes = [p] + [i] * 7 + [p] * 6
     lib.vse_ctc_greedy_decode.restype = i
     lib.vse_keyframe_stats.argtypes = [p, p] + [i] * 12 + [f, f, p, p, p, p]
     lib.vse_keyframe_stats.restype = i

@@ -2,7 +2,8 @@
 
 ``csrc/ctc_decode.cu`` does the whole decode on the card: the class-axis
 sweep over [N, T, C] logits (max, first-max argmax and log-sum-exp in one
-read; C reaches ~21k for the CJK heads) and the collapse of repeats and
+read; C reaches ~21k for the CJK heads; f32, f16 or bf16, each value
+converted to f32 as it is loaded) and the collapse of repeats and
 blanks, the left-pack and the mean score. It replaces the Pallas kernel
 ``vse_tpu/kernels/ctc_decode.py::_argmax_lse_kernel`` and the plain-XLA
 tail around it. Small heads (C <= FUSED_MAX_C) take one launch; larger ones
@@ -27,9 +28,14 @@ from vse_tpu_torch.kernels import _build
 launches = 0
 
 
+# the logits dtypes K1 reads, by the code its C entry takes
+DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
 def argmax_lse_plain(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[N, T, C] logits -> (best id [N, T] int32, softmax prob of best
-    [N, T] f32), the first max on ties. Same arithmetic as the Pallas body."""
+    [N, T] f32), the first max on ties. Same arithmetic as the Pallas body,
+    which casts any float dtype to f32 first."""
     x = logits.float()
     m, _ = x.max(dim=-1)
     best = torch.argmax(x, dim=-1).to(torch.int32)  # first maximal index
@@ -92,8 +98,8 @@ def launch(logits: torch.Tensor, ids, mask, scores, ws) -> None:
     fused, lanes, threads = decode_plan(T, C)
     with _build.on_device(logits):
         status = _build.library().vse_ctc_greedy_decode(
-            logits.data_ptr(), N, T, C, int(fused), lanes, threads,
-            ws.data_ptr(), ws.data_ptr() + N * T * 4, ids.data_ptr(),
+            logits.data_ptr(), N, T, C, DTYPES[logits.dtype], int(fused),
+            lanes, threads, ws.data_ptr(), ws.data_ptr() + N * T * 4, ids.data_ptr(),
             mask.data_ptr(), scores.data_ptr(), _build.stream_of(logits),
         )
     _build.check(status, "vse_ctc_greedy_decode")
@@ -102,11 +108,12 @@ def launch(logits: torch.Tensor, ids, mask, scores, ws) -> None:
 def greedy_decode_cuda(
     logits: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K1 on contiguous f32 CUDA logits [N, T, C] (not counted)."""
+    """Launch K1 on contiguous f32, f16 or bf16 CUDA logits [N, T, C] (not
+    counted)."""
     if not logits.is_cuda:
         raise ValueError("greedy_decode_cuda needs a CUDA tensor")
-    if logits.dtype != torch.float32:
-        raise TypeError(f"K1 takes float32 logits, got {logits.dtype}")
+    if logits.dtype not in DTYPES:
+        raise TypeError(f"K1 takes float32, float16 or bfloat16 logits, got {logits.dtype}")
     if logits.dim() != 3 or logits.shape[2] < 1:
         raise ValueError(f"K1 takes [N, T, C >= 1] logits, got {tuple(logits.shape)}")
     if not logits.is_contiguous():

@@ -10,8 +10,8 @@ Per frame of a cropped uint8 subtitle band the scanner computes 4 stats:
   3: mean_lum       mean luminance
 
 ``csrc/keyframe.cu`` computes them from the u8 pixels in one read, with the
-gray conversion (table lookups, ``gray_lut``) and zero padding fused in
-registers; it replaces the Pallas kernel
+gray conversion (``rgb_to_gray``, from one table of ``scan_lut``) and zero
+padding fused in registers; it replaces the Pallas kernel
 ``vse_tpu/kernels/keyframe.py::_keyframe_kernel`` and the gray+pad program
 around it. ``launch_geometry`` is its grid, kept here so the CPU tests can
 check that it covers every pixel once. ``scan_stats_u8`` launches it for a
@@ -63,9 +63,29 @@ def padded_hw(H: int, W: int, p: ScanParams = ScanParams()) -> Tuple[int, int]:
     return H + (-H) % mh, W + (-W) % mw
 
 
+_INV255 = torch.tensor(1.0 / 255.0, dtype=torch.float32)
+_GRAY_W = [float(torch.tensor(w, dtype=torch.float32)) for w in (0.299, 0.587, 0.114)]
+
+
 def rgb_to_gray(frames_u8: torch.Tensor) -> torch.Tensor:
-    """[.., H, W, 3] uint8 -> [.., H, W] f32 luminance in [0, 1], in the
-    reference's order of operations. The divisor is a tensor so that CUDA,
+    """[.., H, W, 3] uint8 -> [.., H, W] f32 luminance in [0, 1], as the
+    reference's jitted scan computes it (``_scan_stats_u8_jit``): XLA turns
+    ``/ 255`` into ``* f32(1/255)`` and contracts the weighted sum into
+    ``fma(b', .114, fma(r', .299, g' * .587))``. Each FMA is done here in
+    f64 (the product of two f32 is exact there) and rounded once to f32,
+    which gives the FMA's bits on every one of the 2^24 colours."""
+    x = frames_u8.float() * _INV255.to(frames_u8.device)
+    wr, wg, wb = _GRAY_W
+    s = x[..., 1] * torch.tensor(wg, device=x.device)
+    s = (x[..., 0].double() * wr + s.double()).float()
+    return (x[..., 2].double() * wb + s.double()).float()
+
+
+def rgb_to_gray_eager(frames_u8: torch.Tensor) -> torch.Tensor:
+    """The reference's ``rgb_to_gray`` run eagerly, in source order:
+    ``(r/255*.299 + g/255*.587) + b/255*.114``. The scan does not use it;
+    it is the counterpart of the eager gray of the sync path's keyframes
+    (``vse_tpu/sync/demux.py``). The divisor is a tensor so that CUDA,
     like the CPU, divides (a Python-scalar divisor would be turned into a
     multiply by its reciprocal, one ulp off)."""
     f = frames_u8.float() / torch.tensor(255.0, device=frames_u8.device)
@@ -102,13 +122,10 @@ def frame_stats_plain(
     )
 
 
-def gray_lut() -> torch.Tensor:
-    """f32 [3, 256]: the per-byte terms of ``rgb_to_gray`` (``v / 255 * w``
-    for the weights 0.299, 0.587, 0.114), computed with the same f32
-    operations, so that ``(lut[0][r] + lut[1][g]) + lut[2][b]`` in f32 is
-    ``rgb_to_gray`` bit for bit. K2 looks gray up in these tables."""
-    f = torch.arange(256, dtype=torch.float32) / torch.tensor(255.0)
-    return torch.stack([f * 0.299, f * 0.587, f * 0.114])
+def scan_lut() -> torch.Tensor:
+    """f32 [256]: ``x' = v * f32(1/255)`` for every byte v, the operand of
+    ``rgb_to_gray``'s FMAs. K2 reads its gray inputs from this table."""
+    return torch.arange(256, dtype=torch.float32) * _INV255
 
 
 # K2's grid (csrc/keyframe.cu): a strip is one cell row by STRIP pixels and
@@ -170,10 +187,13 @@ def launch_geometry(
             run //= 2
     if not 1 <= run <= K2_RUN_MAX:
         raise ValueError(f"K2 takes 1 <= run <= {K2_RUN_MAX}, got {run}")
-    return Geometry(n_bands, n_strips, threads, n_parts, run, -(-T // run))
+    n_runs = -(-T // run)
+    if n_runs > 65535:  # the grid's y dimension
+        raise ValueError(f"K2 takes at most {65535 * run} frames at run {run}, got {T}")
+    return Geometry(n_bands, n_strips, threads, n_parts, run, n_runs)
 
 
-# per device: the gray tables and the kernel's ticket counters, made at the
+# per device: the gray table and the kernel's ticket counters, made at the
 # first launch on it (outside any CUDA-graph capture). The tickets are zero
 # between launches (the kernel resets them), so K2 launches on one device
 # must not overlap: the main path issues them on one stream.
@@ -183,7 +203,7 @@ _workspace: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 def _consts(device: torch.device, n_runs: int) -> Tuple[torch.Tensor, torch.Tensor]:
     ws = _workspace.get(device)
     if ws is None or ws[1].numel() < n_runs:
-        lut = ws[0] if ws is not None else gray_lut().reshape(-1).to(device)
+        lut = ws[0] if ws is not None else scan_lut().to(device)
         ws = (lut, torch.zeros(max(n_runs, 1024), dtype=torch.int32, device=device))
         _workspace[device] = ws
     return ws

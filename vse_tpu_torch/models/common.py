@@ -10,6 +10,9 @@ Parity notes against the flax reference:
 - the MobileNetV3 hard-sigmoid is ``clip(x/6 + 0.5, 0, 1)`` (the PP-OCR det
   SE uses a different one, see ``ppocr_det.py``).
 - the SE mid width is ``make_divisible(C // 4)``.
+
+Each block also has ``forward_bf16``, the reference's bf16 numerics
+(``models/bf16.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from vse_tpu_torch.models import bf16 as B16
 
 
 def make_divisible(v: float, divisor: int = 8, min_value: Optional[int] = None) -> int:
@@ -70,9 +75,16 @@ class ConvBNAct(nn.Module):
                               groups=groups, bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=1e-5)
         self.act = ACTS[act]
+        self.act_name = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.act(self.bn(self.conv(same_pad(x, self.kernel, self.strides))))
+
+    def forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
+        """bf16 ``x`` -> the activation's output before its last rounding
+        (``B16.rb`` it for a bf16 consumer)."""
+        y = B16.conv(self.conv, same_pad(x, self.kernel, self.strides))
+        return B16.act_raw(self.act_name, B16.rb(B16.batch_norm(self.bn, y)))
 
 
 class SEBlock(nn.Module):
@@ -88,6 +100,12 @@ class SEBlock(nn.Module):
         s = x.mean(dim=(2, 3), keepdim=True)
         s = self.conv2(F.relu(self.conv1(s)))
         return x * hard_sigmoid(s)
+
+    def forward_bf16(self, x: torch.Tensor, x_raw: torch.Tensor) -> torch.Tensor:
+        """``x`` rounded; ``x_raw`` the same values before rounding, which
+        the mean reads."""
+        s = B16.conv_bias(self.conv2, F.relu(B16.conv_bias(self.conv1, B16.mean_hw(x_raw))))
+        return B16.rb(x * B16.hard_sigmoid(s))
 
 
 class InvertedResidual(nn.Module):
@@ -109,3 +127,12 @@ class InvertedResidual(nn.Module):
             y = self.se(y)
         y = self.project(y)
         return x + y if self.residual else y
+
+    def forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
+        y = B16.rb(self.expand.forward_bf16(x))
+        y_raw = self.dw.forward_bf16(y)
+        y = B16.rb(y_raw)
+        if self.se is not None:
+            y = self.se.forward_bf16(y, y_raw)
+        y = B16.rb(self.project.forward_bf16(y))
+        return B16.rb(x + y) if self.residual else y

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from vse_tpu_torch.models import bf16 as B16
+
 from vse_tpu_torch.models.common import ConvBNAct, InvertedResidual, make_divisible
 
 # (kernel, expand, out, use_se, act, stride)
@@ -58,3 +60,11 @@ class MobileNetV3Rec(nn.Module):
             x = b(x)
         x = self.last(x)  # [B, C, H', W']
         return x.amax(dim=2).transpose(1, 2)  # [B, W', C]
+
+    def forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
+        """The reference's bf16 numerics (``models/bf16.py``)."""
+        x = B16.rb(self.stem.forward_bf16(B16.rb(x)))
+        for b in self.blocks:
+            x = b.forward_bf16(x)
+        x = B16.rb(self.last.forward_bf16(x))
+        return x.amax(dim=2).transpose(1, 2)

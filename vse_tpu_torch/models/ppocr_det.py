@@ -14,6 +14,10 @@ Module names follow the paddle parameter names of
 load_det_npz`` only renames the BatchNorm statistics. Convs pad
 symmetrically at k//2 like paddle (torch's own padding); the SE gate is
 paddle's hard-sigmoid ``clip(0.2x + 0.5)`` with a plain ``C // 4`` mid width.
+
+``forward`` computes in f32 (the architecture check against the flax module
+in f32); after ``models.bf16.emulate`` it takes each module's
+``forward_bf16``, the reference's bf16 numerics (``models/bf16.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vse_tpu_torch.models import bf16 as B16
 from vse_tpu_torch.models.common import hard_swish
 
 ACT = {"relu": F.relu, "hardswish": hard_swish, None: lambda x: x}
@@ -48,9 +53,14 @@ class ConvBN(nn.Module):
                               bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=1e-5)
         self.act = ACT[act]
+        self.act_name = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.act(self.bn(self.conv(x)))
+
+    def forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
+        y = B16.rb(B16.batch_norm(self.bn, B16.conv(self.conv, x)))
+        return B16.rb(B16.act_raw(self.act_name, y))
 
 
 class ResidualUnit(nn.Module):
@@ -64,6 +74,11 @@ class ResidualUnit(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.linear_conv(self.bottleneck_conv(self.expand_conv(x)))
         return x + y if self.residual else y
+
+    def forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.expand_conv.forward_bf16(x)
+        y = self.linear_conv.forward_bf16(self.bottleneck_conv.forward_bf16(y))
+        return B16.rb(x + y) if self.residual else y
 
 
 class Backbone(nn.Module):
@@ -89,6 +104,15 @@ class Backbone(nn.Module):
             feats.append(x)
         return feats
 
+    def forward_bf16(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = self.conv.forward_bf16(B16.rb(x))
+        feats = []
+        for si in range(4):
+            for unit in getattr(self, f"stage{si}"):
+                x = unit.forward_bf16(x)
+            feats.append(x)
+        return feats
+
 
 class SEBlockP(nn.Module):
     """Paddle SE: conv1(+bias) relu, conv2(+bias), hardsigmoid 0.2x+0.5."""
@@ -103,6 +127,13 @@ class SEBlockP(nn.Module):
         s = self.conv2(F.relu(self.conv1(s)))
         return x * torch.clamp(0.2 * s + 0.5, 0.0, 1.0)
 
+    def forward_bf16(self, x: torch.Tensor, x_raw: torch.Tensor) -> torch.Tensor:
+        """``x`` rounded; ``x_raw`` the same values before rounding, which
+        the mean reads."""
+        s = B16.conv_bias(self.conv2, torch.relu(B16.conv_bias(self.conv1, B16.mean_hw(x_raw))))
+        s = torch.clamp(B16.rb(B16.rb(s * B16.POINT2_BF16) + 0.5), 0.0, 1.0)
+        return B16.rb(x * s)
+
 
 class RSELayer(nn.Module):
     def __init__(self, cin: int, out: int, k: int):
@@ -113,6 +144,11 @@ class RSELayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.in_conv(x)
         return y + self.se_block(y)
+
+    def forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
+        y_raw = B16.conv(self.in_conv, x)
+        y = B16.rb(y_raw)
+        return B16.rb(y + self.se_block.forward_bf16(y, y_raw))
 
 
 def _up2(x: torch.Tensor) -> torch.Tensor:
@@ -138,6 +174,18 @@ class RSEFPN(nn.Module):
             outs.append(p)
         return torch.cat(outs[::-1], dim=1)
 
+    def forward_bf16(self, feats: List[torch.Tensor]) -> torch.Tensor:
+        lat = [m.forward_bf16(f) for m, f in zip(self.ins_conv, feats)]
+        for i in range(len(lat) - 2, -1, -1):
+            lat[i] = B16.rb(lat[i] + _up2(lat[i + 1]))
+        outs = []
+        for i, f in enumerate(lat):
+            p = self.inp_conv[i].forward_bf16(f)
+            for _ in range(i):
+                p = _up2(p)
+            outs.append(p)
+        return torch.cat(outs[::-1], dim=1)
+
 
 class DBHead(nn.Module):
     def __init__(self, cin: int = 96):
@@ -152,6 +200,13 @@ class DBHead(nn.Module):
         x = F.relu(self.conv_bn1(self.conv1(x)))
         x = F.relu(self.conv_bn2(self.conv2(x)))
         return torch.sigmoid(self.conv3(x))
+
+    def forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(B16.rb(B16.batch_norm(self.conv_bn1, B16.conv(self.conv1, x))))
+        x = B16.rb(B16.conv(self.conv2, x)) + self.conv2.bias[:, None, None]
+        x = torch.relu(B16.rb(B16.batch_norm(self.conv_bn2, x)))
+        x = B16.rb(B16.conv(self.conv3, x)) + self.conv3.bias[:, None, None]
+        return B16.sigmoid(x)
 
 
 class Head(nn.Module):
@@ -169,7 +224,11 @@ class PPOCRv3DetMobile(nn.Module):
         self.backbone = Backbone()
         self.neck = RSEFPN()
         self.head = Head()
+        self.bf16 = False
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        feats = self.backbone(images.permute(0, 3, 1, 2))
-        return self.head.binarize(self.neck(feats))[:, 0]
+        x = images.permute(0, 3, 1, 2)
+        if self.bf16:
+            return self.head.binarize.forward_bf16(
+                self.neck.forward_bf16(self.backbone.forward_bf16(x)))[:, 0]
+        return self.head.binarize(self.neck(self.backbone(x)))[:, 0]

@@ -2,9 +2,11 @@
 (the port of the main-path parts of ``vse_tpu/ops/image.py``).
 
 Resampling is separable bilinear written as two matrix products against
-tent-weight matrices, as in the reference. The port computes in f32 (the
-reference runs uint8 inputs through bf16 products); with float32 matmuls at
-"highest" precision the card reproduces the f32 results of the CPU path.
+tent-weight matrices, as in the reference. Like the reference, uint8 frames
+go through bf16 products: the tent weights and the first product are
+rounded to bf16 and the second product is accumulated in f32
+(``models/bf16.py`` says how the port emulates that). Divisions by a
+constant are multiplications by its f32 reciprocal, as XLA compiles them.
 Layouts follow the reference: frames [B, H, W, 3], boxes xyxy.
 """
 
@@ -15,9 +17,16 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from vse_tpu_torch.models.bf16 import fma, rb
+
 # PP-OCR det normalization (ImageNet stats).
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def recip(x) -> torch.Tensor:
+    """The f32 reciprocal of an f32 constant (what XLA multiplies by)."""
+    return torch.tensor(1.0) / torch.tensor(x, dtype=torch.float32)
 
 
 def tent_matrix(out_n: int, in_n: int, device=None) -> torch.Tensor:
@@ -35,21 +44,22 @@ def tent_matrix(out_n: int, in_n: int, device=None) -> torch.Tensor:
 def letterbox_matmul(
     frames: torch.Tensor, out_h: int, out_w: int
 ) -> Tuple[torch.Tensor, Tuple[float, float]]:
-    """Det preprocessing: [B, H, W, 3] (uint8 or float 0..255) -> normalized
-    f32 canvas [B, out_h, out_w, 3] (aspect-preserving resize at the top-left,
-    the rest padded with the normalized value of a black pixel). Returns
-    (canvas, (H / nh, W / nw)), the per-axis canvas -> frame factors."""
+    """Det preprocessing: uint8 [B, H, W, 3] -> normalized f32 canvas
+    [B, out_h, out_w, 3] (aspect-preserving resize at the top-left, the rest
+    padded with the normalized value of a black pixel), with the
+    reference's bf16 roundings. Returns (canvas, (H / nh, W / nw)), the
+    per-axis canvas -> frame factors."""
     B, H, W, C = frames.shape
     dev = frames.device
     scale = min(out_h / H, out_w / W)
     nh, nw = int(round(H * scale)), int(round(W * scale))
-    wy = tent_matrix(nh, H, dev)
-    wx = tent_matrix(nw, W, dev)
-    x = torch.einsum("bhwc,oh->bowc", frames.float(), wy)
+    wy = rb(tent_matrix(nh, H, dev))
+    wx = rb(tent_matrix(nw, W, dev))
+    x = rb(torch.einsum("bhwc,oh->bowc", rb(frames.float()), wy))
     x = torch.einsum("bowc,pw->bopc", x, wx)
     mean = torch.tensor(IMAGENET_MEAN, device=dev)
     std = torch.tensor(IMAGENET_STD, device=dev)
-    x = (x / 255.0 - mean) / std
+    x = fma(x, recip(255.0).to(dev), -mean) * recip(IMAGENET_STD).to(dev)
     canvas = ((0.0 - mean) / std).expand(B, out_h, out_w, C).clone()
     canvas[:, :nh, :nw] = x
     return canvas, (H / nh, W / nw)
@@ -67,7 +77,9 @@ def crop_boxes_windowed(
     frames [B, H, W, 3] (uint8 or float 0..255); boxes [B, K, 4] xyxy in
     frame coords -> f32 crops [B, K, out_h, out_w, 3] in 0..255. The window
     is applied as a mask on a full-height row matrix; the tent weights are
-    computed in the window's local coordinates, exactly as the reference."""
+    computed in the window's local coordinates, exactly as the reference.
+    uint8 frames take the reference's bf16 path (weights and the row
+    product rounded to bf16); float frames stay f32."""
     B, H, W, _ = frames.shape
     dev = frames.device
     window = min(window_rows, H)
@@ -92,7 +104,11 @@ def crop_boxes_windowed(
     wy = wy * in_window[..., None, :].float()  # [B, K, out_h, H]
     wx = torch.clamp(1.0 - (xs[..., :, None] - cols).abs(), 0.0, 1.0)
     wx = wx * (ox < target_w[..., None]).float()[..., None]  # [B, K, out_w, W]
-    mid = torch.einsum("bkoh,bhwc->bkowc", wy, frames.float())
+    if frames.dtype == torch.uint8:
+        wy, wx = rb(wy), rb(wx)
+        mid = rb(torch.einsum("bkoh,bhwc->bkowc", wy, frames.float()))
+    else:
+        mid = torch.einsum("bkoh,bhwc->bkowc", wy, frames.float())
     return torch.einsum("bkowc,bkpw->bkopc", mid, wx)
 
 
@@ -103,9 +119,9 @@ def ink_rows(crops: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Ten
     Only the contiguous inked run around the crop center counts (1-2-row
     dips bridged), so a neighbouring subtitle line reached by the
     y-expansion does not merge in. Returns (y0, y1, ok) per crop."""
-    h = crops.shape[1]
-    g = crops.mean(dim=-1)  # [N, h, w]
-    e = (g[:, :, 1:] - g[:, :, :-1]).abs().mean(dim=2)  # [N, h]
+    h, w = crops.shape[1], crops.shape[2]
+    g = crops.sum(dim=-1) * recip(crops.shape[-1]).to(crops.device)  # [N, h, w]
+    e = (g[:, :, 1:] - g[:, :, :-1]).abs().sum(dim=2) * recip(w - 1).to(crops.device)
     lo = e.min(dim=1).values
     rng = e.max(dim=1).values - lo
     mask = (e - lo[:, None]) > 0.12 * rng[:, None]
@@ -137,9 +153,10 @@ def refine_boxes_ink(
     ymin, ymax = flat_b[:, 1], flat_b[:, 3]
     bh = torch.clamp(ymax - ymin, min=1.0)
     ink_h = (y1 - y0 + 1).float()
-    pad = margin * ink_h + 1.5
-    ny0 = ymin + (y0.float() - pad) * bh / h
-    ny1 = ymin + (y1.float() + 1.0 + pad) * bh / h
+    pad = fma(ink_h, margin, 1.5)
+    inv_h = recip(h).to(crops.device)
+    ny0 = fma((y0.float() - pad) * bh, inv_h, ymin)
+    ny1 = fma((y1.float() + 1.0 + pad) * bh, inv_h, ymin)
     ny0 = torch.clamp(ny0, 0.0, frame_h - 1.0)
     ny1 = torch.clamp(ny1, 0.0, frame_h - 1.0)
     refined = torch.stack([flat_b[:, 0], ny0, flat_b[:, 2], ny1], dim=-1)

@@ -1,31 +1,37 @@
-"""SubtitleExtractor — the pipeline entry point (the port of the keyframe
-strategy of ``vse_tpu/pipeline/extractor.py``).
+"""SubtitleExtractor — the pipeline entry point (the port of
+``vse_tpu/pipeline/extractor.py``).
 
-``SubtitleExtractor(video, sub_area).run()`` with a subtitle area in fast
-mode runs the keyframe strategy (reference backend/main.py:137-147):
+``SubtitleExtractor(video, sub_area).run()`` picks the reference's strategy
+(backend/main.py:137-147):
 
-1. scan every frame's subtitle area with kernel K2 and turn the stats into
-   keyframe spans (``scan_keyframe_spans``);
-2. OCR within-span samples at ``extract_frequency`` frames per second on the
-   uploaded band (``extract_frame_by_keyframe``);
-3. split spans where the text changes, keep each group's medoid read
-   (``refine_keyframe_spans``), dedup and write the SRT
-   (``generate_subtitle_file``).
+- with a subtitle area (mode fast), the keyframe strategy:
+  1. scan every frame's subtitle area with kernel K2, fed by
+     ``device_prefetch``, and turn the stats into keyframe spans
+     (``scan_keyframe_spans``);
+  2. OCR within-span samples at ``extract_frequency`` frames per second on
+     the uploaded band (``extract_frame_by_keyframe``);
+  3. split spans where the text changes and keep each group's medoid read
+     (``refine_keyframe_spans``);
+- with no area, the fps strategy: OCR every ``fps // extract_frequency``-th
+  frame, fed by ``device_prefetch``, with a resume manifest
+  (``extract_frame_by_fps``), then the watermark and scene-text filters
+  (reference main.py:158-171).
 
-With an area the watermark and scene-text filters do not run
-(reference main.py:158-171). Not ported in this slice: the fps and
-accurate strategies, word segmentation, resume, progress listeners and
-cancellation.
+Then dedup and the SRT (``generate_subtitle_file``), word segmentation
+(``post/reformat.py``) when ``word_segmentation`` is on, and a ``.txt``
+transcript when ``generate_txt`` is on. Not ported in this slice: the
+accurate and auto modes, the OCR-loss debugger and the raw-record dump.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import threading
 import time
 from collections import defaultdict
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,13 +41,25 @@ from vse_tpu_torch.core.subtitle_area import SubtitleArea
 from vse_tpu_torch.device import resolve_device
 from vse_tpu_torch.kernels.keyframe import ScanParams, find_spans, scan_stats_u8
 from vse_tpu_torch.ops.levenshtein import ratio
+from vse_tpu_torch.pipeline.feed import device_prefetch
 from vse_tpu_torch.pipeline.ocr_engine import OcrEngine
-from vse_tpu_torch.post.dedup import generate_srt_from_timeline, remove_duplicate_subtitles
+from vse_tpu_torch.pipeline.resume import ProgressManifest
+from vse_tpu_torch.post.dedup import (
+    generate_srt, generate_srt_from_timeline, remove_duplicate_subtitles,
+)
+from vse_tpu_torch.post.filters import always_yes, filter_scene_text, filter_watermark
 from vse_tpu_torch.post.records import RawRecord
-from vse_tpu_torch.post.srt import SrtFile, SrtItem
+from vse_tpu_torch.post.reformat import execute as reformat_execute
+from vse_tpu_torch.post.srt import SrtFile, SrtItem, srt_to_txt
 from vse_tpu_torch.video.decode import FrameStream, Video, probe, read_frames, video_path
 
 CJK_RE = re.compile(r"[一-龥]")
+
+ProgressListener = Callable[[float, float], None]  # (frame_extract, ocr) 0-100
+
+
+class ExtractionCancelled(Exception):
+    """Raised between batches when ``SubtitleExtractor.cancel`` is set."""
 
 
 def split_text_groups(samples: list, thr: float, merge_thr: float = 0.5) -> list:
@@ -92,33 +110,32 @@ def medoid_of(group: list):
 
 
 class SubtitleExtractor:
-    """Extract hard subtitles from one video into an SRT file (keyframe
-    strategy: a subtitle area, mode fast)."""
+    """Extract hard subtitles from one video into an SRT file."""
 
     def __init__(
         self,
         video: Video,
-        sub_area: SubtitleArea,
+        sub_area: Optional[SubtitleArea] = None,
         config: Optional[VseConfig] = None,
         engine: Optional[OcrEngine] = None,
         device: Union[str, torch.device] = "cuda",
+        confirm=None,
+        resume: bool = False,
     ):
         self.config = config or VseConfig()
-        if self.config.word_segmentation:
-            raise NotImplementedError(
-                "word segmentation is not ported yet; pass "
-                "word_segmentation=False (--no-word-segmentation)"
-            )
         if self.config.mode != Mode.FAST:
             raise NotImplementedError(
-                "only the keyframe strategy of mode 'fast' is ported yet"
+                f"mode {self.config.mode.value!r} is not ported yet; use mode 'fast'"
             )
         self.device = resolve_device(device)
         self.video = video
         self.meta = probe(video)
         self.fps = self.meta.fps
+        self.frame_count = self.meta.frame_count
         self.frame_height = self.meta.height
         self.sub_area = sub_area
+        self.confirm = confirm
+        self.resume = resume
         self._engine = engine
         self.raw_records: List[RawRecord] = []
         self.timeline = SrtFile()
@@ -127,6 +144,12 @@ class SubtitleExtractor:
         self.subtitle_output_path = os.path.join(
             os.path.dirname(path), f"{Path(path).stem}.srt"
         )
+        # progress: two channels of 0-100 (reference main.py:87-99)
+        self.progress_frame_extract = 0.0
+        self.progress_ocr = 0.0
+        self._listeners: List[ProgressListener] = []
+        # cooperative cancellation, checked between device batches
+        self.cancel = threading.Event()
         # wall seconds of each pass, span and sample counts of the last run()
         self.pass_seconds: Dict[str, float] = {}
         self.n_spans = self.n_samples = 0
@@ -140,6 +163,23 @@ class SubtitleExtractor:
             )
         return self._engine
 
+    def add_progress_listener(self, fn: ProgressListener) -> None:
+        """Reference contract: backend/main.py:1052-1080."""
+        self._listeners.append(fn)
+
+    def update_progress(self, frame_extract: Optional[float] = None,
+                        ocr: Optional[float] = None) -> None:
+        if frame_extract is not None:
+            self.progress_frame_extract = frame_extract
+        if ocr is not None:
+            self.progress_ocr = ocr
+        for fn in self._listeners:
+            fn(self.progress_frame_extract, self.progress_ocr)
+
+    def _check_cancel(self) -> None:
+        if self.cancel.is_set():
+            raise ExtractionCancelled(video_path(self.video))
+
     def frame_to_ms(self, frame_no: int) -> float:
         """Frame -> capture timestamp, else frame/fps arithmetic."""
         if frame_no in self._frame_to_ms:
@@ -152,7 +192,7 @@ class SubtitleExtractor:
         return int(ms / self.fps)
 
     def _in_ab_section(self, frame_no: int) -> bool:
-        ab = self.sub_area.ab_section
+        ab = self.sub_area.ab_section if self.sub_area is not None else None
         return ab is None or ab.contains(frame_no)
 
     # --- OCR gating ---------------------------------------------------------
@@ -170,16 +210,26 @@ class SubtitleExtractor:
             ymax = min(quad[2][1], quad[3][1])
             if self.engine.language == "en":
                 text = CJK_RE.sub("", text)
-            overflow = self.sub_area.overflow_area_rate(xmin, xmax, ymin, ymax)
-            if overflow > dev_rate or prob <= drop_score:
-                continue
+            if self.sub_area is not None:
+                overflow = self.sub_area.overflow_area_rate(xmin, xmax, ymin, ymax)
+                if overflow > dev_rate or prob <= drop_score:
+                    continue
             kept.append(((int(xmin), int(xmax), int(ymin), int(ymax)), text, prob))
         return kept
 
+    def _gate_and_record(self, frame_no: int, dt_box: list, rec_res: list) -> None:
+        """Gate one frame's lines and append them as raw records; with an
+        AB section, only frames inside it record."""
+        if self._in_ab_section(frame_no):
+            for box, text, _prob in self._gate_lines(dt_box, rec_res):
+                self.raw_records.append(RawRecord(frame_no, box, text))
+
     def upload_band(self) -> Optional[Tuple[int, int]]:
         """Rows (y0, y1) the OCR pass uploads: the area plus a margin (so the
-        overflow gate still sees straddling boxes), full width; None when
-        that is the whole frame."""
+        overflow gate still sees straddling boxes), full width; None without
+        an area or when the band is the whole frame."""
+        if self.sub_area is None:
+            return None
         margin = max(32, self.config.subtitle_area_deviation_pixel)
         y0 = max(0, self.sub_area.ymin - margin)
         y1 = min(self.frame_height, self.sub_area.ymax + margin)
@@ -191,22 +241,27 @@ class SubtitleExtractor:
 
     def scan_keyframe_spans(self) -> list:
         """Pass 1: stats of every frame's subtitle area in batches of 32
-        (kernel K2 on the card), then the spans and the raw timeline."""
+        (kernel K2 on the card), each batch cropped on the host and uploaded
+        ahead by ``device_prefetch``; the stats stay on the device until the
+        pass ends. Then the spans and the raw timeline."""
         a = self.sub_area
         stream = FrameStream(self.video, batch_size=32)
         params = ScanParams()
-        all_stats: List[np.ndarray] = []
+        all_stats: List[torch.Tensor] = []
         all_nos: List[np.ndarray] = []
-        for batch in stream:
+        crop = lambda f: f[:, a.ymin : a.ymax, a.xmin : a.xmax]  # noqa: E731
+        for batch, band in device_prefetch(stream, self.device, transform=crop):
+            self._check_cancel()
             n_valid = int(batch.valid.sum())
-            band = np.ascontiguousarray(batch.frames[:, a.ymin : a.ymax, a.xmin : a.xmax])
-            stats = scan_stats_u8(torch.from_numpy(band).to(self.device), params)
-            all_stats.append(stats.cpu().numpy()[:n_valid])
+            all_stats.append(scan_stats_u8(band, params)[:n_valid])
             all_nos.append(batch.frame_nos[:n_valid])
+            done = float(batch.frame_nos[n_valid - 1]) / max(1, self.frame_count)
+            self.update_progress(frame_extract=done * 100)
         self._frame_to_ms.update(stream.frame_to_ms)
         if not all_stats:
             return []
-        spans = find_spans(np.concatenate(all_stats), np.concatenate(all_nos), params)
+        stats = torch.cat(all_stats).cpu().numpy()
+        spans = find_spans(stats, np.concatenate(all_nos), params)
         self.timeline = SrtFile()
         for i, sp in enumerate(spans):
             self.timeline.append(SrtItem(
@@ -266,6 +321,8 @@ class SubtitleExtractor:
                 if not g[0][1]:
                     continue
                 best = medoid_of(g)
+                # recorded under the timeline key int(ms / fps), which is not
+                # a frame number: the AB gate was applied to the span above
                 for box, text, _prob in self._gate_lines(best[3], best[4]):
                     self.raw_records.append(RawRecord(self.ms_to_frameno(start_ms), box, text))
 
@@ -282,25 +339,110 @@ class SubtitleExtractor:
         y0, y1 = self.upload_band() or (0, self.frame_height)
         samples = []
         for i in range(0, len(pairs), B):
+            self._check_cancel()
             chunk = np.stack([f for _, f in pairs[i : i + B]])
             results = self.engine.predict_batch(chunk[:, y0:y1], origin=(y0, 0))
             for (m, _), (dt_box, rec_res) in zip(pairs[i : i + B], results):
                 samples.append((m[0], m[1], dt_box, rec_res))
+            self.update_progress(ocr=min(100.0, (i + B) / max(1, len(pairs)) * 100))
         t2 = time.perf_counter()
         self.refine_keyframe_spans(spans, samples)
         self.pass_seconds.update(scan=t1 - t0, ocr=t2 - t1)
         self.n_spans, self.n_samples = len(spans), len(pairs)
 
+    # --- fps strategy ----------------------------------------------------------
+
+    def extract_frame_by_fps(self) -> None:
+        """OCR every ``fps // extract_frequency``-th frame (reference
+        backend/main.py:228-253) in batches of ``frame_batch``, uploaded
+        ahead by ``device_prefetch``. With ``resume``, the progress manifest
+        is saved every 8 batches and a run starts after the last saved
+        frame."""
+        t0 = time.perf_counter()
+        path = video_path(self.video)
+        stride = max(1, int(self.fps // self.config.extract_frequency))
+        start_frame = 0
+        manifest = None
+        if self.resume:
+            manifest = ProgressManifest.load(path, "fps")
+            if manifest is not None and manifest.last_frame_no > 0:
+                self.raw_records.extend(manifest.records)
+                start_frame = manifest.last_frame_no
+                print(f"resuming from frame {start_frame} "
+                      f"({len(manifest.records)} records restored)")
+            else:
+                manifest = ProgressManifest(path, "fps")
+        stream = FrameStream(self.video, batch_size=self.config.frame_batch,
+                             stride=stride, start_frame=start_frame)
+        transform, origin = None, (0, 0)
+        band = self.upload_band()
+        if band is not None:
+            y0, y1 = band
+            transform, origin = (lambda f: f[:, y0:y1]), (y0, 0)
+        batches_since_save = n_samples = 0
+        for batch, frames in device_prefetch(stream, self.device, transform=transform):
+            self._check_cancel()
+            n_valid = int(batch.valid.sum())
+            results = self.engine.predict_batch(frames, origin=origin)[:n_valid]
+            for i, (dt_box, rec_res) in enumerate(results):
+                self._gate_and_record(int(batch.frame_nos[i]), dt_box, rec_res)
+            n_samples += n_valid
+            done = float(batch.frame_nos[n_valid - 1]) / max(1, self.frame_count)
+            self.update_progress(frame_extract=done * 100, ocr=done * 100)
+            if manifest is not None:
+                batches_since_save += 1
+                if batches_since_save >= 8:
+                    manifest.last_frame_no = int(batch.frame_nos[n_valid - 1])
+                    manifest.records = list(self.raw_records)
+                    manifest.save()
+                    batches_since_save = 0
+        self._frame_to_ms.update(stream.frame_to_ms)
+        if manifest is not None:
+            manifest.clear()
+        self.pass_seconds["ocr"] = time.perf_counter() - t0
+        self.n_samples = n_samples
+
+    def apply_filters(self) -> None:
+        """The watermark filter (the auto text-constancy policy unless a
+        ``confirm`` is given) and the scene-text filter (reference
+        main.py:158-171); they run only without a subtitle area."""
+        cfg = self.config
+        self.raw_records = filter_watermark(
+            self.raw_records,
+            watermark_area_num=cfg.watermark_area_num,
+            tolerant_pixel_x=cfg.tolerant_pixel_x,
+            tolerant_pixel_y=cfg.tolerant_pixel_y,
+            confirm=self.confirm,
+        )
+        self.raw_records = filter_scene_text(
+            self.raw_records,
+            subtitle_area_deviation_pixel=cfg.subtitle_area_deviation_pixel,
+            confirm=self.confirm or always_yes,
+        )
+
     # --- orchestration ---------------------------------------------------------
 
     def run(self) -> str:
-        """Full pipeline. Returns the SRT path."""
+        """Full pipeline (reference backend/main.py:103-191). Returns the SRT
+        path."""
         t0 = time.perf_counter()
+        self.update_progress(0, 0)
         self.raw_records = []
         self.pass_seconds = {}
-        self.extract_frame_by_keyframe()
+        self.n_spans = self.n_samples = 0
+        if self.sub_area is not None:
+            self.extract_frame_by_keyframe()
+        else:
+            self.extract_frame_by_fps()
         t1 = time.perf_counter()
+        if self.sub_area is None:
+            self.apply_filters()
         self.generate_subtitle_file()
+        if self.config.word_segmentation:
+            reformat_execute(self.subtitle_output_path, self.config.language)
+        self.update_progress(100, 100)
+        if self.config.generate_txt:
+            srt_to_txt(self.subtitle_output_path)
         self.pass_seconds["post"] = time.perf_counter() - t1
         self.pass_seconds["total"] = time.perf_counter() - t0
         print(f"extraction finished in {self.pass_seconds['total']:.1f}s -> "
@@ -308,14 +450,19 @@ class SubtitleExtractor:
         return self.subtitle_output_path
 
     def generate_subtitle_file(self) -> None:
-        """Dedup the raw records and merge them into the keyframe timeline."""
+        """Dedup the raw records, then merge them into the keyframe timeline
+        (keyframe strategy) or pad them into cues (fps strategy)."""
+        keyframe = self.sub_area is not None
         spans = remove_duplicate_subtitles(
             self.raw_records,
             threshold_percent=self.config.threshold_text_similarity,
-            single_frame_extends=False,
+            single_frame_extends=not keyframe,
         )
-        srt = generate_srt_from_timeline(
-            self.timeline, spans, self.ms_to_frameno,
-            delete_empty_timestamp=self.config.delete_empty_timestamp,
-        )
+        if keyframe:
+            srt = generate_srt_from_timeline(
+                self.timeline, spans, self.ms_to_frameno,
+                delete_empty_timestamp=self.config.delete_empty_timestamp,
+            )
+        else:
+            srt, _ = generate_srt(spans, self.frame_to_ms, self.fps)
         srt.save(self.subtitle_output_path)

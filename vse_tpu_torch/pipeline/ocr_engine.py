@@ -4,6 +4,9 @@ path of ``vse_tpu/pipeline/ocr_engine.py``).
 One ``ocr_step`` runs letterbox -> PP-OCRv3 DB det -> pooled box extraction
 -> boxes to frame coords -> y-expanded, ink-tight two-pass crops -> CRNN ->
 greedy CTC decode (kernel K1), with the boxes on the device throughout.
+The models, the letterbox and the crops reproduce the JAX engine's bf16
+numerics (``models/bf16.py``); on the card the two models' forwards replay
+as CUDA graphs (``models/graphed.py``).
 ``predict_batch`` returns the reference's per-frame ``(dt_box, rec_res)``:
 quads as 4 (x, y) points, ``[(text, prob)]``, lines sorted top to bottom
 and boxes left to right (reference backend/tools/ocr.py:16-22,44-79).
@@ -25,10 +28,14 @@ from vse_tpu_torch.core.charset import get_charset
 from vse_tpu_torch.core.config import Mode, VseConfig
 from vse_tpu_torch.device import resolve_device
 from vse_tpu_torch.kernels.ctc_decode import ctc_greedy_decode
+from vse_tpu_torch.models.bf16 import emulate, fma
 from vse_tpu_torch.models.crnn import CRNNRecognizer
+from vse_tpu_torch.models.graphed import GraphedForward
 from vse_tpu_torch.models.ppocr_det import PPOCRv3DetMobile
 from vse_tpu_torch.ops.db_postprocess import db_postprocess
-from vse_tpu_torch.ops.image import crop_boxes_windowed, letterbox_matmul, refine_boxes_ink
+from vse_tpu_torch.ops.image import (
+    crop_boxes_windowed, letterbox_matmul, recip, refine_boxes_ink,
+)
 from vse_tpu_torch.weights import (
     from_jax_params, load_det_npz, load_rec_flat, load_rec_meta, rec_head_paths,
 )
@@ -77,13 +84,13 @@ def expand_boxes_y(boxes: torch.Tensor, frac: float, h: int) -> torch.Tensor:
     clamped to the frame (crop stage only; reported boxes stay unexpanded)."""
     if frac <= 0:
         return boxes
-    pad = frac * (boxes[..., 3] - boxes[..., 1])
+    bh = boxes[..., 3] - boxes[..., 1]
     return torch.stack(
         [
             boxes[..., 0],
-            torch.clamp(boxes[..., 1] - pad, 0, h - 1),
+            torch.clamp(fma(-bh, frac, boxes[..., 1]), 0, h - 1),
             boxes[..., 2],
-            torch.clamp(boxes[..., 3] + pad, 0, h - 1),
+            torch.clamp(fma(bh, frac, boxes[..., 3]), 0, h - 1),
         ],
         dim=-1,
     )
@@ -151,6 +158,11 @@ class OcrEngine:
         self.rec_model.load_state_dict(from_jax_params(load_rec_flat(language)))
         self.det_model = PPOCRv3DetMobile()
         self.det_model.load_state_dict(load_det_npz())
+        # both models run the reference's bf16 numerics (models/bf16.py)
+        emulate(self.rec_model)
+        emulate(self.det_model)
+        self.det_forward = GraphedForward(self.det_model)
+        self.rec_forward = GraphedForward(self.rec_model)
         self.rec_model.to(self.device).eval()
         self.det_model.to(self.device).eval()
         self.rec_h = self.config.rec_image_height
@@ -174,7 +186,7 @@ class OcrEngine:
         B, h, w, _ = frames.shape
         hd, wd = self.det_bucket(h, w)
         x, (inv_y, inv_x) = letterbox_matmul(frames, hd, wd)
-        prob = self.det_model(x)
+        prob = self.det_forward(x)
         boxes, det_scores, valid, _ = db_postprocess(
             prob,
             max_boxes=self.max_boxes,
@@ -197,8 +209,8 @@ class OcrEngine:
         crops = crops_tight(frames, crop_boxes, self.rec_h, self.rec_w, cfg, h)
         K = crops.shape[1]
         crops = crops.reshape((B * K,) + tuple(crops.shape[2:]))
-        crops = (crops / 255.0 - 0.5) / 0.5
-        logits = self.rec_model(crops).contiguous()
+        crops = fma(crops, recip(255.0).to(crops.device), -0.5) * 2.0
+        logits = self.rec_forward(crops).contiguous()
         ids, mask, rec_scores = ctc_greedy_decode(logits)
         T = ids.shape[1]
         return (
@@ -207,17 +219,22 @@ class OcrEngine:
         )
 
     def predict_batch(
-        self, frames_u8: np.ndarray, origin: Tuple[int, int] = (0, 0)
+        self, frames_u8: Union[np.ndarray, torch.Tensor],
+        origin: Tuple[int, int] = (0, 0),
     ) -> List[Tuple[list, list]]:
-        """Full OCR on a host frame batch [B, h, w, 3] uint8, in chunks of
+        """Full OCR on a frame batch [B, h, w, 3] uint8 — a host array, or a
+        tensor such as ``device_prefetch`` yields — in chunks of
         ``max_batch_size``. ``origin=(dy, dx)`` is added to the output boxes
         (callers that pass only the subtitle band get full-frame coords)."""
+        if isinstance(frames_u8, np.ndarray):
+            frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
+        frames_u8 = frames_u8.to(self.device)
         B = frames_u8.shape[0]
         chunk = max(1, self.config.max_batch_size)
         out: List[Tuple[list, list]] = []
         for i in range(0, B, chunk):
-            fr = torch.from_numpy(np.ascontiguousarray(frames_u8[i : i + chunk]))
-            res = self.ocr_step(fr.to(self.device))
+            fr = frames_u8[i : i + chunk]
+            res = self.ocr_step(fr)
             boxes, _, valid, ids, mask, rec_scores = (r.cpu().numpy() for r in res)
             out.extend(self._format_results(
                 fr.shape[0], boxes, valid, ids, mask, rec_scores, origin

@@ -1,5 +1,4 @@
-"""Subtitle dedup + SRT generation on the keyframe timeline (the parts of
-the JAX package's module that the port's main path uses).
+"""Subtitle dedup + SRT generation (the port of the JAX package's module).
 
 Semantics-parity re-implementation of the reference's dedup/SRT stage:
 
@@ -9,6 +8,9 @@ Semantics-parity re-implementation of the reference's dedup/SRT stage:
   the span head (or at EOF); the kept text is the *longest* space-stripped
   variant in the span; single-frame spans extend to the next line's start
   frame (non-keyframe-timeline mode only).
+- `generate_srt` (reference backend/main.py:614-637): cues shorter than 1s
+  (|end-start| < fps) are padded to exactly 1s; timestamps come from a
+  frame->ms mapping.
 - `generate_srt_from_timeline` (reference backend/main.py:639-669): merge a
   keyframe-scanner timeline SRT with deduped OCR text — cue start frames are
   matched to span starts, end times re-linked to the matched span end's cue,
@@ -64,6 +66,27 @@ def remove_duplicate_subtitles(
                 break
             j += 1
     return spans
+
+
+def generate_srt(
+    spans: Sequence[Span],
+    frame_to_ms: Callable[[int], float],
+    fps: float,
+) -> Tuple[SrtFile, List[int]]:
+    """Spans -> SRT with the reference's <1s padding rule (reference
+    backend/main.py:614-637). Returns (srt, indices_padded)."""
+    srt = SrtFile()
+    padded: List[int] = []
+    for idx, (start_f, end_f, text) in enumerate(spans):
+        line_code = idx + 1
+        start_ms = int(frame_to_ms(int(start_f)))
+        if abs(int(end_f) - int(start_f)) < fps:
+            end_ms = int(frame_to_ms(int(int(start_f) + fps)))
+            padded.append(line_code)
+        else:
+            end_ms = int(frame_to_ms(int(end_f)))
+        srt.append(SrtItem(line_code, start_ms, end_ms, text.rstrip("\n")))
+    return srt, padded
 
 
 def generate_srt_from_timeline(

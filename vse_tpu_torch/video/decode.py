@@ -97,25 +97,40 @@ class FrameBatch:
 
 class FrameStream:
     """Single-pass decoded frame stream with fixed-size batches (the last
-    one zero-padded). A reader thread decodes ahead into a bounded queue;
-    ``frame_to_ms`` collects every frame's timestamp."""
+    one zero-padded, ``valid`` False on the padding). A reader thread
+    decodes ahead into a bounded queue.
 
-    def __init__(self, video: Video, batch_size: int):
+    ``stride`` samples fps-mode style: emit one frame, skip ``stride - 1``
+    (the reference's ``fps // extractFrequency`` skip loop, backend/main.py:
+    246-252). Decoding starts after the first ``start_frame`` frames and
+    stops after frame ``end_frame`` (1-based, inclusive). ``frame_to_ms``
+    collects the timestamp of every decoded frame, sampled or not, as the
+    JAX package's stream does."""
+
+    def __init__(self, video: Video, batch_size: int, stride: int = 1,
+                 start_frame: int = 0, end_frame: Optional[int] = None):
         self.video = video
         self.meta = probe(video)
         self.batch_size = batch_size
+        self.stride = max(1, stride)
+        self.start_frame = start_frame
+        self.end_frame = end_frame
         self.frame_to_ms: dict = {}
 
     def _frames(self) -> Iterator[Tuple[np.ndarray, int, float]]:
-        """(RGB frame, 1-based frame number, timestamp ms) in decode order."""
+        """(RGB frame, 1-based frame number, timestamp ms) in decode order,
+        from frame ``start_frame + 1`` on."""
         if isinstance(self.video, InMemoryVideo):
-            for i, f in enumerate(self.video.frames):
-                yield f, i + 1, i * 1000.0 / self.video.fps
+            for i in range(self.start_frame, len(self.video.frames)):
+                yield self.video.frames[i], i + 1, i * 1000.0 / self.video.fps
             return
         cv2 = _cv2()
         cap = cv2.VideoCapture(self.video)
         try:
             frame_no = 0
+            if self.start_frame > 0:
+                cap.set(cv2.CAP_PROP_POS_FRAMES, self.start_frame)
+                frame_no = self.start_frame
             while True:
                 ret, frame = cap.read()
                 if not ret:
@@ -126,13 +141,16 @@ class FrameStream:
             cap.release()
 
     def _decode_loop(self, q: "queue.Queue", stop: threading.Event) -> None:
+        frames = self._frames()
         try:
-            for frame, no, ts in self._frames():
-                if stop.is_set():
+            for frame, no, ts in frames:
+                if stop.is_set() or (self.end_frame is not None and no > self.end_frame):
                     break
                 self.frame_to_ms[no] = ts
-                q.put((np.ascontiguousarray(frame), no))
+                if (no - self.start_frame - 1) % self.stride == 0:
+                    q.put((np.ascontiguousarray(frame), no))
         finally:
+            frames.close()  # release the capture now, not at collection
             q.put(None)
 
     def __iter__(self) -> Iterator[FrameBatch]:

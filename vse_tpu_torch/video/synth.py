@@ -1,18 +1,23 @@
 """Compose a subtitled clip in memory from pre-rendered text bands.
 
-A fixture directory holds ``bands.npz`` (uint8 RGB bands, rendered on the
-clip's background colour) and ``recipe.json``::
+A fixture directory holds band files (``bands.npz``: uint8 RGB bands,
+rendered on the clip's background colour) and recipes such as
+``recipe.json``::
 
     {"width": W, "height": H, "fps": F, "n_frames": N,
      "background": [r, g, b], "band_origin": [y, x],
-     "area": [ymin, ymax, xmin, xmax],
-     "cues": [{"band": "band0", "text": "...", "first": 26, "last": 150}, ...]}
+     "area": [ymin, ymax, xmin, xmax],            (optional)
+     "band_files": ["bands.npz", ...],            (optional, default bands.npz)
+     "cues": [{"band": "band0", "text": "...", "first": 26, "last": 150,
+               "origin": [y, x]}, ...]}           (origin optional)
 
 Cue frame numbers are 1-based and inclusive. ``compose_clip`` pastes each
-cue's band at ``band_origin`` on a plain background, so the clip needs no
-font, codec or OpenCV at run time. ``vse_tpu_torch/assets/smoke/`` is the
-fixture that ``chip_smoke.py`` drives (made by
-``tools/make_torch_smoke_fixture.py``).
+cue's band at its ``origin``, else at ``band_origin``, on a plain
+background, so the clip needs no font, codec or OpenCV at run time.
+``vse_tpu_torch/assets/smoke/`` holds the fixtures that ``chip_smoke.py``
+drives (made by ``tools/make_torch_smoke_fixture.py``): ``recipe.json``,
+three cues in a subtitle area, and ``recipe_fps.json``, the same cues with
+a corner watermark and a short scene-text line and no area.
 """
 
 from __future__ import annotations
@@ -31,12 +36,16 @@ SMOKE_FIXTURE = os.path.join(
 )
 
 
-def load_fixture(path: str = SMOKE_FIXTURE) -> Tuple[Dict[str, np.ndarray], dict]:
-    with np.load(os.path.join(path, "bands.npz")) as z:
-        bands = {k: np.asarray(z[k]) for k in z.files}
-    with open(os.path.join(path, "recipe.json"), "r", encoding="utf-8") as f:
-        recipe = json.load(f)
-    return bands, recipe
+def load_fixture(path: str = SMOKE_FIXTURE, recipe: str = "recipe.json"
+                 ) -> Tuple[Dict[str, np.ndarray], dict]:
+    """(bands by name, recipe) of the fixture directory ``path``."""
+    with open(os.path.join(path, recipe), "r", encoding="utf-8") as f:
+        rec = json.load(f)
+    bands: Dict[str, np.ndarray] = {}
+    for name in rec.get("band_files", ["bands.npz"]):
+        with np.load(os.path.join(path, name)) as z:
+            bands.update({k: np.asarray(z[k]) for k in z.files})
+    return bands, rec
 
 
 def compose_frames(bands: Dict[str, np.ndarray], recipe: dict,
@@ -46,9 +55,9 @@ def compose_frames(bands: Dict[str, np.ndarray], recipe: dict,
     n = recipe["n_frames"] if n_frames is None else n_frames
     frames = np.empty((n, recipe["height"], recipe["width"], 3), np.uint8)
     frames[:] = np.asarray(recipe["background"], np.uint8)
-    y, x = recipe["band_origin"]
     for cue in recipe["cues"]:
         band = bands[cue["band"]]
+        y, x = cue.get("origin", recipe["band_origin"])
         h, w, _ = band.shape
         frames[cue["first"] - 1 : min(cue["last"], n), y : y + h, x : x + w] = band
     return frames
@@ -61,5 +70,23 @@ def compose_clip(bands: Dict[str, np.ndarray], recipe: dict, path: str,
     return InMemoryVideo(compose_frames(bands, recipe, n_frames), float(recipe["fps"]), path)
 
 
-def recipe_area(recipe: dict) -> SubtitleArea:
-    return SubtitleArea(*recipe["area"])
+def recipe_area(recipe: dict) -> Optional[SubtitleArea]:
+    """The recipe's subtitle area, or None when it has none."""
+    return SubtitleArea(*recipe["area"]) if "area" in recipe else None
+
+
+def noisy_band() -> np.ndarray:
+    """u8 [600, 40, 480, 3]: noise in [20, 70) from seed 0, with 30 white
+    3 x 12 blocks a frame during 5 spans of 60 frames. Some of its 4 x 8
+    cells sit at the scan's text-cell threshold, where a one-ulp change in
+    gray flips the vote (frame 191 when it is scanned in batches of 32);
+    ``noisy_band.npz`` holds the JAX package's stats of it."""
+    rng = np.random.default_rng(0)
+    f = rng.integers(20, 70, (600, 40, 480, 3), dtype=np.uint8)
+    for s in range(5):
+        for t in range(s * 120 + 30, s * 120 + 90):
+            ys = rng.integers(0, 37, 30)
+            xs = rng.integers(0, 468, 30)
+            for y, x in zip(ys, xs):
+                f[t, y : y + 3, x : x + 12] = 255
+    return f
