@@ -9,8 +9,10 @@ Phases, each timed; any failure raises and the script exits non-zero:
    versions, and whether OpenCV and ninja exist (printed only, never needed);
 2. build: the CUDA kernels of ``vse_tpu_torch/csrc`` with one nvcc call;
 3. kernel parity on the card: K1 (greedy CTC decode, on f32, f16 and bf16
-   logits) and K2 (keyframe stats) against their plain PyTorch versions on
-   the same inputs, twice (the kernels are deterministic); K2 also on the
+   logits, at en's C = 69, ch's C = 21,060 and japan's C = 21,249) and K2
+   (keyframe stats, on en's and ch's fixture bands) against their plain
+   PyTorch versions on the same inputs, twice (the kernels are
+   deterministic); K2 also on the
    noisy band (``vse_tpu_torch.video.synth.noisy_band``, rebuilt from its
    seed), against the JAX package's stats of it committed in
    ``assets/smoke/noisy_band.npz``; and each kernel's times at the main
@@ -37,16 +39,32 @@ Phases, each timed; any failure raises and the script exits non-zero:
    cues short enough that the subtitles survive the filters. The fps
    strategy fed by ``device_prefetch``, the filters, word segmentation.
    Every OCR line before the filters must equal the JAX package's (the same
-   frame and text, a box within 2 px), the SRT must equal its committed
-   reference, K1 must launch once per OCR chunk and K2 never.
+   frame and text, a box within 2 px, a score within ``SCORE_ATOL``), the
+   SRT must equal its committed reference, K1 must launch once per OCR
+   chunk and K2 never;
+6. the default language, ch, with its 21,060-class head, so that every OCR
+   chunk goes through K1's two-launch large-C path on real logits: the
+   keyframe strategy on ``recipe_ch.json`` (an area; the SRT equal to
+   ``reference_ch.srt``, K2 once per 32-frame batch, K1 at least once) and
+   the fps strategy on ``recipe_ch_fps_short.json`` (no area; every line
+   before the filters and the SRT held as in phase 5). It prints the memory
+   that the CUDA graphs' private pools hold (each rec graph keeps a
+   [64, 80, 21060] f32 output).
 
-The line before the last lists the kernels as JSON; the last line is
+Each path runs twice (cold, warm) with the launch counts set to 0 just
+before each run and read just after; ``launches_by_path`` holds the warm
+runs'. Each timed row (a kernel's top-level numbers, and ``at_c21060``,
+``at_c21249``, ``at_ch_area``) names the paths that run the kernel at its
+shape (``row_paths``: en's C = 69 and 1280-wide band, ch's C = 21,060 and
+400-wide band) and their launches (``row_launches``); ``launches`` is the
+sum over all paths. The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this script, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import gc
 import importlib.util
 import json
 import math
@@ -61,6 +79,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 GRAPH_LAUNCHES = 100  # kernel launches captured in one CUDA graph
+SCORE_ATOL = 0.07  # an OCR line's score against the JAX package's
 REPLAYS = 5
 WALL_CALLS = 200
 
@@ -190,11 +209,13 @@ def kernel_parity():
     from vse_tpu_torch.video.synth import SMOKE_FIXTURE, compose_frames, load_fixture, noisy_band
 
     rows = {}
-    # K1 at the main path's shape ([8 frames x 8 boxes, 80, 69]; logits warm
-    # in L2) and the 21,249-class heads' (435 MB: cold in the 50 MB L2)
+    # K1 at the main paths' shapes, [8 frames x 8 boxes, 80, C]: en's C = 69
+    # (logits warm in L2), ch's 21,060 (431 MB: cold in the 50 MB L2, rows
+    # 16-byte aligned) and japan's 21,249 (rows not aligned)
     k1_err = 0.0
-    for i, (N, T, C) in enumerate([(64, 80, 69), (64, 80, 21249)]):
-        x = k1_logits(N, T, C, seed=i)
+    for key, C, seed in (("K1", 69, 0), ("K1_c21060", 21060, 2), ("K1_c21249", 21249, 1)):
+        N, T = 64, 80
+        x = k1_logits(N, T, C, seed)
         ids, mask, sc = k1.greedy_decode_cuda(x)
         ids_p, mask_p, sc_p = k1.collapse(*k1.argmax_lse_plain(x))
         if not (torch.equal(ids, ids_p) and torch.equal(mask, mask_p)):
@@ -205,7 +226,10 @@ def kernel_parity():
         again = k1.greedy_decode_cuda(x)
         if not all(torch.equal(a, b) for a, b in zip((ids, mask, sc), again)):
             raise AssertionError(f"K1 {N,T,C}: two runs differ")
-        for dt in (torch.float16, torch.bfloat16):
+        fused = k1.decode_plan(T, C)[0]
+        launches = "1 launch" if fused else "2 launches"
+        half_rows = {}
+        for dt in (torch.float16, torch.bfloat16) if key != "K1_c21060" else ():
             xh = x.to(dt)
             got = k1.greedy_decode_cuda(xh)
             want = k1.collapse(*k1.argmax_lse_plain(xh))
@@ -214,34 +238,45 @@ def kernel_parity():
             k1_err = max(k1_err, check_close(f"K1 {N,T,C} {dt} scores", got[2], want[2],
                                              1e-5, 1e-6))
             bh = k1.alloc_outputs(N, T, x.device)
-            dev = device_us(lambda: k1.launch(xh, *bh))
-            print(f"K1 [{N},{T},{C}] {str(dt)[6:]}: ids/mask exact, scores within rtol "
-                  f"1e-5; device {dev:.3f} us, bound "
-                  f"{bound_ms(N * T * C * 2 + N * T * 5 + N * 4, 4.0 * N * T * C)[0] * 1e3:.3f} us",
-                  flush=True)
+            half_rows[str(dt)[6:]] = timing_row(
+                f"K1 [{N},{T},{C}] {str(dt)[6:]} ({launches}; ids/mask exact, scores "
+                "within rtol 1e-5)",
+                lambda: k1.launch(xh, *bh), lambda: k1.ctc_greedy_decode(xh),
+                lambda: k1.collapse(*k1.argmax_lse_plain(xh)),
+                N * T * C * 2 + N * T * 5 + N * 4, 4.0 * N * T * C,
+                library_fn=lambda: (torch.max(xh, -1), torch.logsumexp(xh, -1)),
+            )
+            del xh
         bufs = k1.alloc_outputs(N, T, x.device)
-        fused = k1.decode_plan(T, C)[0]
         row = timing_row(
-            f"K1 [{N},{T},{C}] ({'1 launch' if fused else '2 launches'}; "
-            "ids/mask exact, deterministic)",
+            f"K1 [{N},{T},{C}] ({launches}; ids/mask exact, deterministic)",
             lambda: k1.launch(x, *bufs), lambda: k1.ctc_greedy_decode(x),
             lambda: k1.collapse(*k1.argmax_lse_plain(x)),
             N * T * C * 4 + N * T * 5 + N * 4, 4.0 * N * T * C,
             library_fn=lambda: (torch.max(x, -1), torch.logsumexp(x, -1)),
         )
-        rows["K1" if i == 0 else "K1_large_c"] = row
+        row.update(shape=[N, T, C], half=half_rows)
+        rows[key] = row
+        del x
+        torch.cuda.empty_cache()
     rows["K1"]["max_abs_err"] = k1_err
 
-    # K2 on the fixture's text band (the main path's [32, 104, 1280, 3],
-    # warm in L2 as after its upload), on random pixels at that shape, and
-    # on a ragged shape
-    bands, recipe = load_fixture()
-    y0, y1, x0, x1 = recipe["area"]
-    clip = compose_frames(bands, recipe, n_frames=64)
-    band = torch.from_numpy(clip[32:64, y0:y1, x0:x1].copy()).cuda()
+    # K2 on the fixtures' text bands (en's [32, 104, 1280, 3] and ch's
+    # [32, 104, 400, 3], its area narrowed around the cues; warm in L2 as
+    # after their upload), on random pixels at en's shape, and on a ragged
+    # shape
+    def fixture_band(recipe_name):
+        bands, recipe = load_fixture(recipe=recipe_name)
+        y0, y1, x0, x1 = recipe["area"]
+        clip = compose_frames(bands, recipe, n_frames=64)
+        return torch.from_numpy(clip[32:64, y0:y1, x0:x1].copy()).cuda()
+
+    band = fixture_band("recipe.json")
+    band_ch = fixture_band("recipe_ch.json")
     g = torch.Generator().manual_seed(7)
     cases = [
         ("fixture band", band),
+        ("ch fixture band", band_ch),
         ("random", torch.randint(0, 256, tuple(band.shape), generator=g,
                                  dtype=torch.uint8).cuda()),
         ("ragged", torch.randint(0, 256, (32, 37, 301, 3), generator=g,
@@ -292,27 +327,30 @@ def kernel_parity():
         raise AssertionError("K2: the gray of one-pixel frames differs from the plain version")
     print(f"K2 one-pixel frames of {len(rgb)} colours: stats bit-equal to the plain "
           "version's, gray bit-exact", flush=True)
-    T, H, W, _ = band.shape
-    Hp, Wp = k2.padded_hw(H, W)
-    geo = k2.launch_geometry(T, H, W)
-    partials, out = k2.alloc_outputs(T, geo, band.device)
     p = k2.ScanParams()
-    print(f"K2 grid {geo.n_parts} x {geo.n_runs} blocks of {geo.threads} threads, "
-          f"run {geo.run} frames", flush=True)
-    rows["K2"] = timing_row(
-        f"K2 {list(band.shape)}", lambda: k2.launch(band, geo, p, partials, out),
-        lambda: k2.scan_stats_u8(band), lambda: k2.frame_stats_plain(band),
-        T * H * W * 3 + T * 16, 20.0 * T * Hp * Wp,
-    )
+    for key, fr in (("K2", band), ("K2_ch_area", band_ch)):
+        T, H, W, _ = fr.shape
+        Hp, Wp = k2.padded_hw(H, W)
+        geo = k2.launch_geometry(T, H, W)
+        partials, out = k2.alloc_outputs(T, geo, fr.device)
+        print(f"K2 {list(fr.shape)}: grid {geo.n_parts} x {geo.n_runs} blocks of "
+              f"{geo.threads} threads, run {geo.run} frames", flush=True)
+        rows[key] = timing_row(
+            f"K2 {list(fr.shape)}",
+            lambda fr=fr, geo=geo, partials=partials, out=out: k2.launch(fr, geo, p, partials, out),
+            lambda fr=fr: k2.scan_stats_u8(fr), lambda fr=fr: k2.frame_stats_plain(fr),
+            T * H * W * 3 + T * 16, 20.0 * T * Hp * Wp,
+        )
+        rows[key]["shape"] = [T, H, W, 3]
     rows["K2"]["max_abs_err"] = k2_err
     return rows
 
 
 def drive(label, clip, area, reference, engine, card, spy=None):
     """Two runs (cold, warm) of ``SubtitleExtractor(clip, area).run()`` with
-    the default config, the launch counts set to 0 just before each and read
-    just after; both SRTs must equal ``reference``. Returns the warm run's
-    (launches, extractor)."""
+    the default config for the engine's language, the launch counts set to 0
+    just before each and read just after; both SRTs must equal
+    ``reference``. Returns the warm run's (launches, extractor)."""
     import torch
 
     from vse_tpu_torch.core.config import VseConfig
@@ -320,7 +358,7 @@ def drive(label, clip, area, reference, engine, card, spy=None):
     from vse_tpu_torch.kernels import keyframe as k2
     from vse_tpu_torch.pipeline.extractor import SubtitleExtractor
 
-    cfg = VseConfig(language="en")
+    cfg = VseConfig(language=engine.language)
     for run in ("cold", "warm"):
         ex = SubtitleExtractor(clip, area, cfg, engine=engine, device="cuda")
         if spy is not None:
@@ -344,9 +382,20 @@ def drive(label, clip, area, reference, engine, card, spy=None):
     return launches, ex
 
 
+def graph_pools_mib() -> float:
+    """MiB reserved in CUDA-graph private memory pools (every segment not
+    in the default pool)."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 2**20
+
+
 def main_path(card: str):
     """The keyframe strategy (an area) and the fps strategy (no area), each
-    through the entry point with the default config."""
+    through the entry point with the default config, for en and for ch."""
+    import torch
+
     from vse_tpu_torch.core.config import VseConfig
     from vse_tpu_torch.pipeline.ocr_engine import OcrEngine
     from vse_tpu_torch.video.synth import SMOKE_FIXTURE, compose_clip, load_fixture, recipe_area
@@ -355,34 +404,52 @@ def main_path(card: str):
         with open(os.path.join(SMOKE_FIXTURE, name), encoding="utf-8") as f:
             return f.read()
 
-    t0 = time.perf_counter()
-    engine = OcrEngine(language="en", config=VseConfig(language="en"), device="cuda")
-    print(f"engine load: {time.perf_counter() - t0:.2f} s", flush=True)
-    launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    def keyframe_path(label, key, name, engine):
         t0 = time.perf_counter()
-        bands, recipe = load_fixture()
-        clip = compose_clip(bands, recipe, os.path.join(tmp, "smoke.avi"))
-        kf, _ = drive("main path, keyframe strategy", clip, recipe_area(recipe),
-                      reference("reference_keyframe.srt"), engine, card)
+        bands, recipe = load_fixture(recipe=f"recipe{name}.json")
+        clip = compose_clip(bands, recipe, os.path.join(tmp, f"smoke{name}.avi"))
+        kf, _ = drive(label, clip, recipe_area(recipe),
+                      reference(f"reference{name or '_keyframe'}.srt"), engine, card)
         n_batches = -(-len(clip.frames) // 32)
         if kf["K2"] != n_batches:
-            raise AssertionError(f"K2 launched {kf['K2']} times, want {n_batches}")
+            raise AssertionError(f"{label}: K2 launched {kf['K2']} times, want {n_batches}")
         if kf["K1"] < 1:
-            raise AssertionError("K1 was never launched on the keyframe path")
-        phase("main path (keyframe)", t0)
+            raise AssertionError(f"{label}: K1 was never launched")
+        phase(label, t0)
+        by_path[key] = kf
 
-        by_path = {"keyframe": kf}
-        for key, label, name in (("fps", "fps path", "fps"),
-                                 ("fps_short", "fps path, short cues", "fps_short")):
-            t0 = time.perf_counter()
-            bands, recipe = load_fixture(recipe=f"recipe_{name}.json")
-            clip = compose_clip(bands, recipe, os.path.join(tmp, f"smoke_{name}.avi"))
-            by_path[key] = fps_path(label, clip, reference(f"reference_{name}.srt"),
-                                    json.loads(reference(f"reference_{name}_raw.json")),
-                                    engine, card)
-            phase(label, t0)
-    launches = {k: sum(p[k] for p in by_path.values()) for k in kf}
+    def no_area_path(label, key, name, engine):
+        t0 = time.perf_counter()
+        bands, recipe = load_fixture(recipe=f"recipe_{name}.json")
+        clip = compose_clip(bands, recipe, os.path.join(tmp, f"smoke_{name}.avi"))
+        by_path[key] = fps_path(label, clip, reference(f"reference_{name}.srt"),
+                                json.loads(reference(f"reference_{name}_raw.json")),
+                                engine, card)
+        phase(label, t0)
+
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        engine = OcrEngine(language="en", config=VseConfig(language="en"), device="cuda")
+        print(f"en engine load: {time.perf_counter() - t0:.2f} s", flush=True)
+        keyframe_path("main path, keyframe strategy", "keyframe", "", engine)
+        no_area_path("fps path", "fps", "fps", engine)
+        no_area_path("fps path, short cues", "fps_short", "fps_short", engine)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        pools_before = graph_pools_mib()
+        t0 = time.perf_counter()
+        engine = OcrEngine(language="ch", device="cuda")
+        print(f"ch engine load: {time.perf_counter() - t0:.2f} s, {engine.charset.vocab_size + 1} "
+              "classes", flush=True)
+        keyframe_path("ch, keyframe strategy", "ch_keyframe", "_ch", engine)
+        no_area_path("ch, fps path, short cues", "ch_fps_short", "ch_fps_short", engine)
+        rec = engine.rec_forward.graphs
+        print(f"ch rec graphs: {len(rec)} captured, input shapes "
+              f"{sorted(k[0] for k in rec)}; CUDA-graph pools hold {graph_pools_mib():.1f} "
+              f"MiB ({pools_before:.1f} MiB before the ch engine)", flush=True)
+    launches = {k: sum(p[k] for p in by_path.values()) for k in ("K1", "K2")}
     return launches, by_path
 
 
@@ -393,25 +460,34 @@ def fps_path(label, clip, reference, raw_ref, engine, card):
     per OCR chunk and K2 never. Returns the warm run's launches."""
     seen = {}
 
-    def spy(ex):  # keep the OCR records as they reach the filters
-        filt = ex.apply_filters
+    def spy(ex):  # keep the OCR records as they reach the filters, and scores
+        filt, gate = ex.apply_filters, ex._gate_lines
+        seen["scores"] = []
 
         def keep_then_filter():
             seen["raw"] = list(ex.raw_records)
             filt()
-        ex.apply_filters = keep_then_filter
+
+        def keep_scores(*args):
+            kept = gate(*args)
+            seen["scores"].extend(prob for _, _, prob in kept)
+            return kept
+        ex.apply_filters, ex._gate_lines = keep_then_filter, keep_scores
 
     fps, ex = drive(label, clip, None, reference, engine, card, spy)
-    raw = [[r.frame_no, list(r.coord), r.text] for r in seen["raw"]]
+    raw = [[r.frame_no, list(r.coord), r.text, s] for r, s in zip(seen["raw"], seen["scores"])]
     bad = [(r, q) for r, q in zip(raw, raw_ref)
-           if r[0] != q[0] or r[2] != q[2] or max(abs(a - b) for a, b in zip(r[1], q[1])) > 2]
-    if len(raw) != len(raw_ref) or bad:
+           if r[0] != q[0] or r[2] != q[2] or max(abs(a - b) for a, b in zip(r[1], q[1])) > 2
+           or abs(r[3] - q[3]) > SCORE_ATOL]
+    if len(raw) != len(raw_ref) or len(seen["scores"]) != len(seen["raw"]) or bad:
         raise AssertionError(
             f"{label}: {len(raw)} OCR lines before the filters against the JAX package's "
-            f"{len(raw_ref)}; (port, JAX) pairs that differ in frame, text or a box by "
-            f"more than 2 px:\n{bad}")
+            f"{len(raw_ref)}; (port, JAX) pairs that differ in frame, text, a box by "
+            f"more than 2 px or a score by more than {SCORE_ATOL}:\n{bad}")
+    worst = max(abs(r[3] - q[3]) for r, q in zip(raw, raw_ref))
     print(f"{label}: all {len(raw)} OCR lines before the filters equal the JAX package's "
-          f"(frame, text, box within 2 px); texts {sorted({r[2] for r in raw})}", flush=True)
+          f"(frame, text, box within 2 px, score within {SCORE_ATOL}: max difference "
+          f"{worst!r}); texts {sorted({r[2] for r in raw})}", flush=True)
     # every batch of frame_batch frames (the last one padded) is OCRed in
     # chunks of max_batch_size
     fb, mb = ex.config.frame_batch, ex.engine.config.max_batch_size
@@ -474,8 +550,19 @@ def main() -> int:
         "K2": ("keyframe_stats", "vse_tpu_torch/csrc/keyframe.cu",
                "vse_tpu/kernels/keyframe.py:117"),
     }
+    # the paths whose launches run at each timed row's shape: en's C = 69
+    # and 1280-wide band, ch's C = 21,060 and 400-wide band; no path reads
+    # japan's C = 21,249
+    en_paths, ch_paths = ("keyframe", "fps", "fps_short"), ("ch_keyframe", "ch_fps_short")
+    row_paths = {"K1": en_paths, "K1_c21060": ch_paths, "K1_c21249": (),
+                 "K2": en_paths, "K2_ch_area": ch_paths}
     kernels = []
     for key, (name, src, replaces) in meta.items():
+        for row_key, paths in row_paths.items():
+            if row_key.startswith(key):
+                rows[row_key].update(
+                    row_paths=list(paths),
+                    row_launches=sum(by_path[p][key] for p in paths))
         r = rows[key]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -486,10 +573,15 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "device_us": r["device_us"],
             "wall_us": r["wall_us"], "loop_us": r["loop_us"],
-            "share_of_bound": r["share_of_bound"],
+            "share_of_bound": r["share_of_bound"], "shape": r["shape"],
+            "row_paths": r["row_paths"], "row_launches": r["row_launches"],
         }
         if key == "K1":
-            entry["at_c21249"] = rows["K1_large_c"]
+            entry["half"] = r["half"]
+            entry["at_c21060"] = rows["K1_c21060"]
+            entry["at_c21249"] = rows["K1_c21249"]
+        else:
+            entry["at_ch_area"] = rows["K2_ch_area"]
         kernels.append(entry)
     print(f"[phase] total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

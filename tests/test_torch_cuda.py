@@ -46,7 +46,7 @@ def logits_with_ties(n, t, c, seed):
 
 
 @pytest.mark.parametrize("t", [1, 80])
-@pytest.mark.parametrize("c", [1, 69, 1000, 21249])
+@pytest.mark.parametrize("c", [1, 69, 1000, 21060, 21249])
 def test_k1_cuda_matches_plain(cuda, c, t):
     x = logits_with_ties(64, t, c, seed=c + t).to(cuda)
     before = k1.launches
@@ -103,7 +103,7 @@ def device_ops(fn):
     return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-@pytest.mark.parametrize("c,n_kernels", [(69, 1), (21249, 2)])
+@pytest.mark.parametrize("c,n_kernels", [(69, 1), (21060, 2), (21249, 2)])
 def test_k1_decode_issues_only_its_kernels(cuda, c, n_kernels):
     x = logits_with_ties(8, 80, c, seed=3).to(cuda)
     names = device_ops(lambda: k1.ctc_greedy_decode(x))
@@ -118,6 +118,8 @@ def test_k2_issues_only_its_kernel(cuda):
 
 K2_SHAPES = [
     (32, 104, 1280),  # the main path's band
+    (32, 104, 400),  # ch's band (its fixture's area is 400 wide)
+    (20, 104, 400),  # ch's tail batch
     (32, 37, 301),  # ragged
     (1, 8, 128),
     (5, 38, 300),  # W % 16 != 0 and H % 4 != 0
@@ -240,7 +242,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                             k2.ScanParams(segment_height=3))
 
 
-def emulated_models(cuda):
+def emulated_models(cuda, family="en", vocab_size=68):
     """The engine's det and rec models, switched to the reference's bf16
     numerics."""
     from vse_tpu_torch.models import bf16
@@ -250,22 +252,30 @@ def emulated_models(cuda):
 
     det = PPOCRv3DetMobile()
     det.load_state_dict(load_det_npz())
-    rec = CRNNRecognizer(68)
-    rec.load_state_dict(from_jax_params(load_rec_flat("en")))
+    rec = CRNNRecognizer(vocab_size)
+    rec.load_state_dict(from_jax_params(load_rec_flat(family)))
     return [bf16.emulate(m).to(cuda).eval() for m in (det, rec)]
 
 
-@pytest.mark.parametrize("which", ["det", "rec"])
+@pytest.mark.parametrize("which", ["det", "rec", "rec_ch"])
 def test_graphed_forward_equals_eager_on_the_card(cuda, which):
     """A graph replay runs the eager forward's kernels: bit-equal outputs,
-    fresh inputs through one captured graph, one graph per shape."""
+    fresh inputs through one captured graph, one graph per shape. ``rec_ch``
+    is the ch head (21,060 classes) at the ch main path's chunk of 64 crops
+    and a tail chunk of 24: each graph keeps its own [N, 80, 21060] f32
+    output."""
     from vse_tpu_torch.models.graphed import GraphedForward
 
-    det, rec = emulated_models(cuda)
+    if which == "rec_ch":
+        _, rec = emulated_models(cuda, "ch", 21059)
+    else:
+        det, rec = emulated_models(cuda)
     if which == "det":
         model, shapes = det, [(2, 96, 160, 3), (1, 64, 128, 3)]
-    else:
+    elif which == "rec":
         model, shapes = rec, [(16, 48, 320, 3), (3, 48, 320, 3)]
+    else:
+        model, shapes = rec, [(64, 48, 320, 3), (24, 48, 320, 3)]
     fwd = GraphedForward(model)
     rng = np.random.default_rng(0)
     with torch.inference_mode():

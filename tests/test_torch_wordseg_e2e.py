@@ -5,7 +5,8 @@ The 84-frame 1280x720 clip of ``tests/test_torch_e2e.py`` (two cues of the
 committed smoke fixture) is written losslessly (FFV1). The en head has no
 space class, so the raw reads are glued ("hellofromthenewport..."); word
 segmentation restores the spaces. The SRT must be byte-identical to the JAX
-package's, through the port's extractor and its CLI (no flag but the area).
+package's, through the port's extractor and its CLI (no flag but the area
+and the language: the CLI's default language is the config's, ch).
 """
 
 import os
@@ -64,7 +65,7 @@ def test_keyframe_srt_with_word_segmentation_byte_identical(clip, jax_srt, tmp_p
 def test_cli_with_an_area_and_no_other_flag(clip, jax_srt):
     path, recipe = clip
     area = ",".join(str(v) for v in recipe["area"])
-    assert cli.main(["extract", path, "--area", area, "--device", "cpu"]) == 0
+    assert cli.main(["extract", path, "--area", area, "--language", "en", "--device", "cpu"]) == 0
     with open(path[: -len(".avi")] + ".srt", encoding="utf-8") as f:
         assert f.read() == jax_srt
     assert not os.path.exists(path[: -len(".avi")] + ".txt")

@@ -31,20 +31,42 @@ and the JAX package's SRTs for those clips, each clip written losslessly
                           strategy, the filters, word segmentation)
   reference_fps_raw.json  the raw OCR records of that run before the
                           filters, [frame_no, [xmin, xmax, ymin, ymax],
-                          text] each (``SubtitleExtractor.
+                          text, score] each (``SubtitleExtractor.
                           extract_frame_by_fps`` with the default config)
   reference_fps_short.srt, reference_fps_short_raw.json
                           the same two for the short-cue clip
 
-Band files that exist are reused as committed (PIL renders them only when
-they are missing). Run it with JAX on the CPU (it needs PIL, OpenCV and the
-en rec head):
+With ``--language ch``, the fixtures of the default language instead:
 
-    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py
+  bands_ch.npz            three CJK cue bands (1280 x 104, white fill, a
+                          2 px black outline, 44 px cells), drawn with the
+                          JAX package's stroke composer
+                          (``vse_tpu.core.strokefont``), since no font on
+                          the box covers CJK; drawn at 4x and downsampled
+                          (Lanczos), so the strokes are anti-aliased as a
+                          font's are
+  recipe_ch.json          the keyframe clip of ``recipe.json`` with the ch
+                          cues and the area narrowed to x 440-840 around
+                          them
+  recipe_ch_fps_short.json  the no-area clip of ``recipe_fps_short.json``
+                          with the ch cues (56 frames each), the committed
+                          watermark and sign of ``bands_fps.npz``
+  reference_ch.srt        extract CLIP --area 600,704,440,840 --mode fast
+                          --language ch
+  reference_ch_fps_short.srt, reference_ch_fps_short_raw.json
+                          extract CLIP_FPS --language ch, and its records
+                          before the filters
+
+Band files that exist are reused as committed (they are rendered only when
+they are missing). Run it with JAX on the CPU (it needs PIL, OpenCV and the
+en and ch rec heads):
+
+    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py [--language ch]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -77,6 +99,21 @@ CUES = [
 # auto watermark policy keeps (it drops a group of >= 10 records with at
 # most a tenth as many distinct texts).
 SHORT = 56
+# the ch cues: CJK only (the stroke composer draws no ASCII), fixed before
+# either package read them
+CUES_CH = [
+    ("今天天气很好", 26, 150),
+    ("我们明天见", 176, 300),
+    ("你好世界", 351, 450),
+]
+CH_CELL = 44
+CH_SUPERSAMPLE = 4
+# The keyframe scan counts a frame as text when over 2% of the area's 4 x 8
+# cells are 40% edge pixels. The composer's lines are aliased and its cues
+# are 4-6 characters, 190-285 px wide: drawn directly, their text-cell
+# share over a 1280-wide area is 0.07-0.24%. Anti-aliased and in an area
+# of 400 x 104 around them, it is 2.9-6.1%.
+CH_AREA_X = (440, 840)
 EXTRAS = [
     ("watermark", "VSE TV", (160, 48), [24, 1080], 1, N),
     ("scene", "CITY CAFE", (240, 48), [330, 520], 201, 240),
@@ -93,6 +130,23 @@ def render_band(text: str, w: int = W, h: int = BAND_H, y: int = 30) -> np.ndarr
     d.text(((w - tw) // 2, y), text, font=font, fill=(255, 255, 255),
            stroke_width=2, stroke_fill=(0, 0, 0))
     return np.asarray(img, np.uint8)
+
+
+def render_band_ch(text: str) -> np.ndarray:
+    """A ch cue band, drawn with the stroke composer at ``CH_CELL`` px
+    cells, centred as ``render_band`` centres, at ``CH_SUPERSAMPLE`` times
+    the size and then downsampled."""
+    from PIL import Image, ImageDraw
+
+    from vse_tpu.core.strokefont import draw_text, line_width, stroke_script_for
+
+    k = CH_SUPERSAMPLE
+    script = stroke_script_for("ch")
+    img = Image.new("RGB", (W * k, BAND_H * k), BG)
+    tw = line_width(script, text, CH_CELL * k)
+    draw_text(ImageDraw.Draw(img), ((W * k - tw) // 2, 30 * k), text, CH_CELL * k,
+              script, fill=(255, 255, 255), stroke_width=2 * k, stroke_fill=(0, 0, 0))
+    return np.asarray(img.resize((W, BAND_H), Image.LANCZOS), np.uint8)
 
 
 def load_or_render(name: str, render) -> dict:
@@ -126,18 +180,30 @@ def jax_reference(frames: np.ndarray, out_name: str, *flags: str) -> None:
         print(f"--- {out_name}\n{f.read()}")
 
 
-def jax_fps_records(frames: np.ndarray, out_name: str) -> None:
+def jax_fps_records(frames: np.ndarray, out_name: str, language: str = "en") -> None:
     """The JAX extractor's fps-strategy records of the clip, before the
-    filters."""
+    filters: [frame, box, text, score], the score being the line's
+    recognition score as the gate saw it."""
     from vse_tpu.core.config import VseConfig
     from vse_tpu.pipeline.extractor import SubtitleExtractor
 
     with tempfile.TemporaryDirectory() as tmp:
         clip = os.path.join(tmp, "smoke.avi")
         write_lossless(frames, clip)
-        ex = SubtitleExtractor(clip, None, VseConfig(language="en"))
+        ex = SubtitleExtractor(clip, None, VseConfig(language=language))
+        scores = []
+        gate = ex._gate_lines
+
+        def keep_scores(*args, **kwargs):
+            kept = gate(*args, **kwargs)
+            scores.extend(float(prob) for _, _, prob in kept)
+            return kept
+
+        ex._gate_lines = keep_scores
         ex.extract_frame_by_fps()
-    records = [[r.frame_no, list(r.coord), r.text] for r in ex.raw_records]
+    if len(scores) != len(ex.raw_records):
+        raise SystemExit(f"{len(scores)} scores for {len(ex.raw_records)} records")
+    records = [[r.frame_no, list(r.coord), r.text, s] for r, s in zip(ex.raw_records, scores)]
     with open(os.path.join(OUT, out_name), "w", encoding="utf-8") as f:
         json.dump(records, f, ensure_ascii=False)
         f.write("\n")
@@ -160,19 +226,64 @@ def write_lossless(frames: np.ndarray, path: str) -> None:
     cap.release()
 
 
-def main() -> None:
-    from vse_tpu_torch.video.synth import compose_frames, noisy_band
+def cue_list(cues) -> list:
+    return [{"band": f"band{i}", "text": t, "first": a, "last": b}
+            for i, (t, a, b) in enumerate(cues)]
 
-    os.makedirs(OUT, exist_ok=True)
-    bands = load_or_render("bands.npz", lambda: {
-        f"band{i}": render_band(t) for i, (t, _, _) in enumerate(CUES)})
-    cues = [{"band": f"band{i}", "text": t, "first": a, "last": b}
-            for i, (t, a, b) in enumerate(CUES)]
-    recipe = {
+
+def keyframe_recipe(cues: list) -> dict:
+    return {
         "width": W, "height": H, "fps": FPS, "n_frames": N,
         "background": list(BG), "band_origin": [BAND_Y, 0],
         "area": [BAND_Y, BAND_Y + BAND_H, 0, W], "cues": cues,
     }
+
+
+def short_recipe(recipe: dict, band_file: str) -> dict:
+    """The no-area clip: the recipe's cues cut to ``SHORT`` frames, the
+    watermark and the sign, no area."""
+    out = dict(recipe, band_files=[band_file, "bands_fps.npz"], cues=[
+        dict(c, last=c["first"] + SHORT - 1) for c in recipe["cues"]] + [
+        {"band": name, "text": text, "first": a, "last": b, "origin": origin}
+        for name, text, _, origin, a, b in EXTRAS])
+    del out["area"]
+    return out
+
+
+def main_ch() -> None:
+    from vse_tpu_torch.video.synth import compose_frames
+
+    bands = load_or_render("bands_ch.npz", lambda: {
+        f"band{i}": render_band_ch(t) for i, (t, _, _) in enumerate(CUES_CH)})
+    extras = load_or_render("bands_fps.npz", lambda: None)
+    recipe = keyframe_recipe(cue_list(CUES_CH))
+    recipe["band_files"] = ["bands_ch.npz"]
+    recipe["area"][2:] = list(CH_AREA_X)
+    write_json("recipe_ch.json", recipe)
+    recipe_short = short_recipe(recipe, "bands_ch.npz")
+    write_json("recipe_ch_fps_short.json", recipe_short)
+    area = ",".join(str(v) for v in recipe["area"])
+    jax_reference(compose_frames(bands, recipe), "reference_ch.srt", "--area", area,
+                  "--mode", "fast", "--language", "ch")
+    frames_short = compose_frames({**bands, **extras}, recipe_short)
+    jax_reference(frames_short, "reference_ch_fps_short.srt", "--language", "ch")
+    jax_fps_records(frames_short, "reference_ch_fps_short_raw.json", "ch")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--language", default="en", choices=["en", "ch"])
+    args = ap.parse_args()
+    os.makedirs(OUT, exist_ok=True)
+    if args.language == "ch":
+        main_ch()
+        return
+    from vse_tpu_torch.video.synth import compose_frames, noisy_band
+
+    bands = load_or_render("bands.npz", lambda: {
+        f"band{i}": render_band(t) for i, (t, _, _) in enumerate(CUES)})
+    cues = cue_list(CUES)
+    recipe = keyframe_recipe(cues)
     write_json("recipe.json", recipe)
     extras = load_or_render("bands_fps.npz", lambda: {
         name: render_band(text, w, h, 4) for name, text, (w, h), *_ in EXTRAS})

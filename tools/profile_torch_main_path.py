@@ -2,13 +2,15 @@
 """Profile one warm run of one of the port's paths on one CUDA card.
 
     python3 tools/profile_torch_main_path.py [--path keyframe|fps] \\
-        [--out TRACE.json]
+        [--language en|ch] [--out TRACE.json]
 
-Drives ``SubtitleExtractor.run()`` with the default config (en, mode fast,
-word segmentation on) on a smoke clip of ``vse_tpu_torch/assets/smoke``
-(20 s of 1280x720 at 25 fps, composed in memory): ``keyframe`` (default)
-the clip of ``recipe.json`` with its subtitle area (``extract --area``),
-``fps`` the no-area clip of ``recipe_fps.json`` (``extract`` with no area).
+Drives ``SubtitleExtractor.run()`` with the default config (mode fast,
+word segmentation on) for ``--language`` (default en) on a smoke clip of
+``vse_tpu_torch/assets/smoke`` (20 s of 1280x720 at 25 fps, composed in
+memory): ``keyframe`` (default) the clip with a subtitle area (``extract
+--area``: ``recipe.json``, for ch ``recipe_ch.json``), ``fps`` a no-area
+clip (``extract`` with no area: ``recipe_fps.json``, for ch
+``recipe_ch_fps_short.json``).
 Two runs: a cold run, then a warm run under ``torch.profiler`` with CPU and
 CUDA activities. Prints the card's name and
 power limit, the warm run's pass seconds, the 15 device ops (kernels and
@@ -51,13 +53,20 @@ def busy_us(intervals) -> float:
     return total
 
 
+# the smoke clips of each language: (keyframe, fps)
+RECIPES = {"en": ("recipe.json", "recipe_fps.json"),
+           "ch": ("recipe_ch.json", "recipe_ch_fps_short.json")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=["keyframe", "fps"], default="keyframe")
+    ap.add_argument("--language", choices=sorted(RECIPES), default="en")
     ap.add_argument("--out", default=None,
-                    help="trace path (default chiprun_out/profile_<path>.json)")
+                    help="trace path (default chiprun_out/profile_<language>_<path>.json)")
     args = ap.parse_args()
-    out = args.out or os.path.join(ROOT, "chiprun_out", f"profile_{args.path}.json")
+    out = args.out or os.path.join(ROOT, "chiprun_out",
+                                   f"profile_{args.language}_{args.path}.json")
     sys.path.insert(0, ROOT)
     import torch
     from torch.autograd import DeviceType
@@ -76,10 +85,9 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    bands, recipe = load_fixture(recipe="recipe.json" if args.path == "keyframe"
-                                 else "recipe_fps.json")
-    cfg = VseConfig(language="en")
-    engine = OcrEngine(language="en", config=cfg, device="cuda")
+    bands, recipe = load_fixture(recipe=RECIPES[args.language][args.path == "fps"])
+    cfg = VseConfig(language=args.language)
+    engine = OcrEngine(language=args.language, config=cfg, device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
         clip = compose_clip(bands, recipe, os.path.join(tmp, "smoke.avi"))
         SubtitleExtractor(clip, recipe_area(recipe), cfg, engine=engine, device="cuda").run()
@@ -90,7 +98,7 @@ def main() -> int:
             ex.run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e6
-    print(f"{args.path} path, warm run: pass seconds { {k: round(v, 4) for k, v in ex.pass_seconds.items()} }, "
+    print(f"{args.language} {args.path} path, warm run: pass seconds { {k: round(v, 4) for k, v in ex.pass_seconds.items()} }, "
           f"{wall / 1e6:.4f} s under the profiler", flush=True)
 
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]

@@ -15,7 +15,8 @@ one after the other: each run builds its tree's kernels and prints one JSON
 line.
 
 At the main path's shapes (K2: the smoke fixture's [32, 104, 1280, 3]
-band; K1: [64, 80, 69] and [64, 80, 21249] random logits):
+band; K1: [64, 80, 69] (en), [64, 80, 21060] (ch) and [64, 80, 21249]
+(japan) random logits):
 
 - ``device_us``: 100 calls of ``frame_stats_cuda(band)`` or
   ``ctc_greedy_decode(x)`` captured in a CUDA graph and replayed between
@@ -104,7 +105,7 @@ def main() -> int:
         noise = torch.randint(0, 256, tuple(band.shape), generator=g, dtype=torch.uint8).cuda()
         res["K2"]["random_band_device_us"] = device_us(lambda: k2.frame_stats_cuda(noise))
 
-    for N, T, C in ((64, 80, 69), (64, 80, 21249)):
+    for N, T, C in ((64, 80, 69), (64, 80, 21060), (64, 80, 21249)):
         g = torch.Generator().manual_seed(C)
         x = (torch.randn((N, T, C), generator=g) * 4.0).cuda()
         row = {

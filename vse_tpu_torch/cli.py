@@ -1,22 +1,24 @@
 """Command-line interface of the port.
 
     python -m vse_tpu_torch.cli extract VIDEO [VIDEO ...] \\
-        [--area ymin,ymax,xmin,xmax] [--language en] [--mode fast] \\
+        [--area ymin,ymax,xmin,xmax] [--language ch] [--mode fast] \\
         [--output DIR] [--txt] [--no-word-segmentation] \\
         [--interactive-filters] [--device cuda]
 
 Writes each video's SRT next to it (or into ``--output``); one OCR engine
 serves all the videos. With no ``--area`` it runs the fps strategy with the
 watermark and scene-text filters; with one, the keyframe strategy. Runs on
-the card unless ``--device cpu`` is given. This slice ports mode fast for
-``en`` (the default language here; the JAX package's default is ``ch``);
-decoding a file needs OpenCV. A missing video makes the exit code 1.
+the card unless ``--device cpu`` is given. With no ``--language`` the
+config's language runs (``VseConfig.language``, ``ch``), as in the JAX
+package. This slice ports mode fast for ``ch`` and ``en``; decoding a file
+needs OpenCV. A missing video makes the exit code 1.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from dataclasses import replace
 import sys
 from pathlib import Path
 from typing import List, Optional
@@ -45,9 +47,10 @@ def cmd_extract(args) -> int:
     from vse_tpu_torch.pipeline.extractor import SubtitleExtractor
     from vse_tpu_torch.video.decode import probe
 
-    cfg = VseConfig(language=args.language, mode=Mode(args.mode),
-                    generate_txt=args.txt,
+    cfg = VseConfig(mode=Mode(args.mode), generate_txt=args.txt,
                     word_segmentation=not args.no_word_segmentation)
+    if args.language:
+        cfg = replace(cfg, language=args.language)
     confirm = ask if args.interactive_filters else None
     rc = 0
     engine = None
@@ -84,7 +87,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--area", default=None, metavar="ymin,ymax,xmin,xmax",
                    help="subtitle area in pixels (or ratios <= 1.0); without "
                         "one, the fps strategy and its filters run")
-    p.add_argument("--language", default="en", help="subtitle language")
+    p.add_argument("--language", default=None,
+                   help="subtitle language (default: the config's, ch)")
     p.add_argument("--mode", default="fast", choices=["fast"])
     p.add_argument("--output", default=None, help="output directory (default: the video's)")
     p.add_argument("--txt", action="store_true", help="also write a .txt transcript")

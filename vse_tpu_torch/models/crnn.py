@@ -6,8 +6,10 @@ backward cell ``_1``; both use the i, f, g, o gate order of ``nn.LSTM``
 (``weights.from_jax_params`` maps them).
 
 ``forward`` computes in f32 (the architecture check against the flax module
-in f32); after ``models.bf16.emulate`` it reproduces the reference's bf16
-numerics (``models/bf16.py``)."""
+in f32, on the f32-stored en head); after ``models.bf16.emulate`` it
+reproduces the reference's bf16 numerics (``models/bf16.py``). A head
+stored as bf16 bits (``rec_ch_mobile``, see ``weights.py``) gives
+``forward`` its rounded weights."""
 
 from __future__ import annotations
 

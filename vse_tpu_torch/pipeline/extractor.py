@@ -208,7 +208,7 @@ class SubtitleExtractor:
             xmax = min(quad[1][0], quad[2][0])
             ymin = max(quad[0][1], quad[1][1])
             ymax = min(quad[2][1], quad[3][1])
-            if self.engine.language == "en":
+            if self.engine.family == "en":
                 text = CJK_RE.sub("", text)
             if self.sub_area is not None:
                 overflow = self.sub_area.overflow_area_rate(xmin, xmax, ymin, ymax)

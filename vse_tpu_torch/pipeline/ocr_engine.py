@@ -11,9 +11,16 @@ as CUDA graphs (``models/graphed.py``).
 quads as 4 (x, y) points, ``[(text, prob)]``, lines sorted top to bottom
 and boxes left to right (reference backend/tools/ocr.py:16-22,44-79).
 
+A language resolves to its script family as the reference's registry
+resolves it (``core/charset.py::script_family``); the family names the
+exported rec head (``checkpoints_torch/rec_<family>_mobile``), whose
+``vse_meta.json`` gives the charset variant it was trained on. This slice
+runs the ``en`` and ``ch`` heads.
+
 Not ported in this slice: rectified crops, beam decode, a device mesh, the
-server det/rec variants (modes auto and accurate), ``detect_batch``, and the
-charset variants and script post-passes of non-``en`` families.
+server det/rec variants (modes auto and accurate), ``detect_batch``, the
+jamo and homoglyph charsets and the arabic, cyrillic and el script
+post-passes (``_to_logical`` raises for every family not ported).
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import Any, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from vse_tpu_torch.core.charset import get_charset
+from vse_tpu_torch.core.charset import PORTED_FAMILIES, get_charset, script_family
 from vse_tpu_torch.core.config import Mode, VseConfig
 from vse_tpu_torch.device import resolve_device
 from vse_tpu_torch.kernels.ctc_decode import ctc_greedy_decode
@@ -126,11 +133,12 @@ class OcrEngine:
                 "which are not ported yet; use mode 'fast'"
             )
         self.language = language
+        self.family = script_family(language)
         self.charset = get_charset(language)
-        rec_meta = load_rec_meta(language)
+        rec_meta = load_rec_meta(self.family)
         if rec_meta is None:
             raise FileNotFoundError(
-                f"no exported rec head at {rec_head_paths(language)[0]}; "
+                f"no exported rec head at {rec_head_paths(self.family)[0]}; "
                 "export one with tools/export_torch_weights.py"
             )
         # the head's class count and order are part of its weights
@@ -155,7 +163,7 @@ class OcrEngine:
             hidden=int(rec_meta.get("hidden", 0) or 0),
             cnn_scale=float(rec_meta.get("cnn_scale", 0.0) or 0.0),
         )
-        self.rec_model.load_state_dict(from_jax_params(load_rec_flat(language)))
+        self.rec_model.load_state_dict(from_jax_params(load_rec_flat(self.family)))
         self.det_model = PPOCRv3DetMobile()
         self.det_model.load_state_dict(load_det_npz())
         # both models run the reference's bf16 numerics (models/bf16.py)
@@ -241,6 +249,18 @@ class OcrEngine:
             ))
         return out
 
+    def _to_logical(self, text: str) -> str:
+        """The reference's script-aware decode post-pass
+        (``vse_tpu/pipeline/ocr_engine.py::_to_logical``): visual -> logical
+        order for arabic, the homoglyph fold for cyrillic and el, the
+        identity for every other family. The identity holds for every ported
+        family (``PORTED_FAMILIES``); any other raises, so that a pass not
+        ported yet cannot be skipped silently."""
+        if text and self.family not in PORTED_FAMILIES:
+            raise NotImplementedError(
+                f"the {self.family!r} decode post-pass is not ported yet")
+        return text
+
     def _format_results(self, B, boxes, valid, ids, mask, rec_scores,
                         origin=(0, 0)):
         """ids/mask -> texts, reference output format + line sorting."""
@@ -254,9 +274,9 @@ class OcrEngine:
                     continue
                 x0, y0, x1, y1 = boxes[b, k]
                 x0, x1, y0, y1 = x0 + dx, x1 + dx, y0 + dy, y1 + dy
-                text = self.charset.decode_ids(
+                text = self._to_logical(self.charset.decode_ids(
                     [int(i) for i, m in zip(ids[b, k], mask[b, k]) if m]
-                )
+                ))
                 coords.append((int(x0), int(x1), int(y0), int(y1)))
                 items.append((text, float(rec_scores[b, k])))
             coords, items = sort_into_lines(coords, items)

@@ -16,8 +16,9 @@ cue's band at its ``origin``, else at ``band_origin``, on a plain
 background, so the clip needs no font, codec or OpenCV at run time.
 ``vse_tpu_torch/assets/smoke/`` holds the fixtures that ``chip_smoke.py``
 drives (made by ``tools/make_torch_smoke_fixture.py``): ``recipe.json``,
-three cues in a subtitle area, and ``recipe_fps.json``, the same cues with
-a corner watermark and a short scene-text line and no area.
+three cues in a subtitle area, ``recipe_fps.json``, the same cues with a
+corner watermark and a short scene-text line and no area, and the ch clips
+``recipe_ch.json`` and ``recipe_ch_fps_short.json``.
 """
 
 from __future__ import annotations

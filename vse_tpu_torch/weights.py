@@ -1,9 +1,15 @@
 """Weight loading for the port, without JAX or orbax.
 
 - Rec heads: ``tools/export_torch_weights.py`` flattens a trained flax param
-  tree to ``checkpoints_torch/<head>.npz`` (keys joined with ``/``, f32) plus
-  its ``vse_meta.json``; ``from_jax_params`` maps that flat dict onto the
-  ``CRNNRecognizer`` state dict at load.
+  tree to ``checkpoints_torch/rec_<family>_mobile.npz`` (keys joined with
+  ``/``) plus its ``vse_meta.json``; ``from_jax_params`` maps that flat dict
+  onto the ``CRNNRecognizer`` state dict at load. An array is f32, or, under
+  the key ``bf16/<key>``, the uint16 bits of its bf16 value, which
+  ``load_rec_flat`` widens back to f32 (``rec_ch_mobile`` stores its conv,
+  dense and LSTM parameters so). A bf16-stored head loses nothing that the
+  engine reads, since the engine's emulation of the reference's bf16
+  numerics (``models/bf16.py::emulate``) rounds exactly those arrays to
+  bf16; its f32 ``forward`` runs on the rounded weights.
 - The mobile det: ``checkpoints/ppocr_v3_det_mobile.npz`` holds paddle
   tensors, already in torch layout; ``load_det_npz`` renames the BatchNorm
   statistics.
@@ -115,7 +121,23 @@ def load_rec_meta(family: str) -> Optional[dict]:
         return json.load(f)
 
 
+BF16_PREFIX = "bf16/"
+
+
+def widen_bf16(bits: np.ndarray) -> np.ndarray:
+    """uint16 bf16 bits -> the same values as f32."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
 def load_rec_flat(family: str) -> Dict[str, np.ndarray]:
+    """The family's exported head as flat f32 arrays (bf16-stored arrays
+    widened)."""
     npz, _ = rec_head_paths(family)
+    out: Dict[str, np.ndarray] = {}
     with np.load(npz) as z:
-        return {k: np.asarray(z[k]) for k in z.files}
+        for k in z.files:
+            if k.startswith(BF16_PREFIX):
+                out[k[len(BF16_PREFIX):]] = widen_bf16(np.asarray(z[k], np.uint16))
+            else:
+                out[k] = np.asarray(z[k])
+    return out
