@@ -9,8 +9,10 @@ Phases, each timed; any failure raises and the script exits non-zero:
    versions, and whether OpenCV and ninja exist (printed only, never needed);
 2. build: the CUDA kernels of ``vse_tpu_torch/csrc`` with one nvcc call;
 3. kernel parity on the card: K1 (greedy CTC decode, on f32, f16 and bf16
-   logits, at en's C = 69, ch's C = 21,060 and japan's C = 21,249) and K2
-   (keyframe stats, on en's and ch's fixture bands) against their plain
+   logits, at en's C = 69, ch's C = 21,060 and japan's C = 21,249, and on
+   f32 at the ten non-CJK heads' C, 83 to 298, on the fused path's 8- and
+   16-lane steps) and K2 (keyframe stats, on en's, ch's and each family's
+   fixture bands) against their plain
    PyTorch versions on the same inputs, twice (the kernels are
    deterministic); K2 also on the
    noisy band (``vse_tpu_torch.video.synth.noisy_band``, rebuilt from its
@@ -49,15 +51,27 @@ Phases, each timed; any failure raises and the script exits non-zero:
    the fps strategy on ``recipe_ch_fps_short.json`` (no area; every line
    before the filters and the SRT held as in phase 5). It prints the memory
    that the CUDA graphs' private pools hold (each rec graph keeps a
-   [64, 80, 21060] f32 output).
+   [64, 80, 21060] f32 output);
+7. the ten non-CJK script families (latin, cyrillic, devanagari, arabic,
+   korean, el, ta, te, ka, th), each with its own engine on its exported
+   head: the keyframe strategy on the family's clip of
+   ``recipe_scripts.json``; the SRT must equal the JAX CLI's and every OCR
+   line of every keyframe sample the JAX extractor's (the same frame and
+   text, a box within 2 px, where the box is equal a score within
+   ``SCORE_ATOL``; ``reference_scripts.json``), but for the reads that
+   ``FAULT_11`` lists (ROADMAP fault 11); K2 must launch once per 32-frame
+   batch and K1 once per OCR chunk. Each engine and its CUDA-graph pools
+   are freed before the next.
 
-Each path runs twice (cold, warm) with the launch counts set to 0 just
-before each run and read just after; ``launches_by_path`` holds the warm
-runs'. Each timed row (a kernel's top-level numbers, and ``at_c21060``,
-``at_c21249``, ``at_ch_area``) names the paths that run the kernel at its
-shape (``row_paths``: en's C = 69 and 1280-wide band, ch's C = 21,060 and
-400-wide band) and their launches (``row_launches``); ``launches`` is the
-sum over all paths. The line before the last lists the kernels as JSON; the last line is
+Each path of phases 4-6 runs twice (cold, warm), and so do latin, arabic
+and korean in phase 7 (the other seven once), with the launch counts set to
+0 just before each run and read just after; ``launches_by_path`` holds the
+last run's of each path. Each timed row (a kernel's top-level numbers, and
+``at_c293``, ``at_c21060``, ``at_c21249``, ``at_ch_area`` and
+``at_scripts``) names the paths that run the kernel at its shape
+(``row_paths``: en's C = 69 and 1280-wide band, latin's C = 293, ch's C =
+21,060 and 400-wide band, the families' band widths) and their launches
+(``row_launches``); ``launches`` is the sum over all paths. The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this script, it exits non-zero and prints no result.
 """
@@ -79,9 +93,28 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 GRAPH_LAUNCHES = 100  # kernel launches captured in one CUDA graph
-SCORE_ATOL = 0.07  # an OCR line's score against the JAX package's
+SCORE_ATOL = 0.005  # an OCR line's score against the JAX package's
 REPLAYS = 5
 WALL_CALLS = 200
+# ROADMAP fault 11: the det's convolutions sum in another order than XLA's
+# on the CPU (cuDNN here), which moves a det box by up to 2 px at the
+# families' band shape, or keeps it as an integer but not as a float; a
+# moved crop moves the line's score, and on a marginal glyph its read. What
+# the port reads otherwise than the JAX package, on the CPU or on the card
+# (the JAX read stays acceptable): a cue of the SRT (its index, the port's
+# text), a line's text, and the scores of lines whose box is equal.
+FAULT_11 = {
+    "latin": {"score_atol": 0.03},  # 0.0226 on the CPU, 0.0266 on the card
+    # te's second cue gains a 22 px fragment, 'ష', whose box is 1 px wider
+    # than the JAX package's and scores 0.836 against 0.323 (gate: 0.75)
+    "te": {"cues": {2: "ధన్యఙాద ష"}, "score_atol": 0.012},
+    "th": {"cues": {2: "ขอบคูณ"}, "texts": {"ขอบคุณ": "ขอบคูณ"}},  # on the CPU
+}
+# the ten non-CJK heads' class counts, with the blank
+SCRIPT_CLASSES = (83, 98, 99, 111, 139, 147, 162, 201, 293, 298)
+# the families whose keyframe path runs cold and then warm (latin serves 43
+# languages); the other seven run once
+SCRIPT_WARM = ("latin", "arabic", "korean")
 
 
 def phase(name: str, t0: float) -> None:
@@ -206,7 +239,10 @@ def kernel_parity():
 
     from vse_tpu_torch.kernels import ctc_decode as k1
     from vse_tpu_torch.kernels import keyframe as k2
-    from vse_tpu_torch.video.synth import SMOKE_FIXTURE, compose_frames, load_fixture, noisy_band
+    from vse_tpu_torch.video.synth import (
+        SCRIPT_FAMILIES, SMOKE_FIXTURE, compose_frames, load_fixture, load_script_fixture,
+        noisy_band,
+    )
 
     rows = {}
     # K1 at the main paths' shapes, [8 frames x 8 boxes, 80, C]: en's C = 69
@@ -259,6 +295,34 @@ def kernel_parity():
         rows[key] = row
         del x
         torch.cuda.empty_cache()
+    # the ten non-CJK heads, on the fused path (8 lanes a step for C <= 128,
+    # 16 up to 512); latin's C = 293 is timed, its 6 MB of logits warm in L2
+    # as on the main path
+    for C in SCRIPT_CLASSES:
+        N, T = 64, 80
+        x = k1_logits(N, T, C, seed=C)
+        ids, mask, sc = k1.greedy_decode_cuda(x)
+        ids_p, mask_p, sc_p = k1.collapse(*k1.argmax_lse_plain(x))
+        if not (torch.equal(ids, ids_p) and torch.equal(mask, mask_p)):
+            raise AssertionError(f"K1 {N,T,C}: ids/mask differ from the plain version")
+        if not all(torch.equal(a, b) for a, b in zip((ids, mask, sc), k1.greedy_decode_cuda(x))):
+            raise AssertionError(f"K1 {N,T,C}: two runs differ")
+        k1_err = max(k1_err, check_close(f"K1 {N,T,C} scores", sc, sc_p, 1e-5, 1e-6))
+        fused, lanes, _ = k1.decode_plan(T, C)
+        print(f"K1 [{N},{T},{C}] f32: fused {fused}, {lanes} lanes a step; ids/mask exact, "
+              "scores within rtol 1e-5, deterministic", flush=True)
+        if C == 293:
+            bufs = k1.alloc_outputs(N, T, x.device)
+            row = timing_row(
+                f"K1 [{N},{T},{C}] (1 launch, {lanes} lanes a step)",
+                lambda x=x, bufs=bufs: k1.launch(x, *bufs), lambda x=x: k1.ctc_greedy_decode(x),
+                lambda x=x: k1.collapse(*k1.argmax_lse_plain(x)),
+                N * T * C * 4 + N * T * 5 + N * 4, 4.0 * N * T * C,
+                library_fn=lambda x=x: (torch.max(x, -1), torch.logsumexp(x, -1)),
+            )
+            row.update(shape=[N, T, C], lanes=lanes)
+            rows["K1_c293"] = row
+        del x
     rows["K1"]["max_abs_err"] = k1_err
 
     # K2 on the fixtures' text bands (en's [32, 104, 1280, 3] and ch's
@@ -273,10 +337,20 @@ def kernel_parity():
 
     band = fixture_band("recipe.json")
     band_ch = fixture_band("recipe_ch.json")
+    # each non-CJK family's band, one per area width that en and ch lack
+    script_bands = {}
+    for family in SCRIPT_FAMILIES:
+        bands, recipe = load_script_fixture(family)
+        y0, y1, x0, x1 = recipe["area"]
+        if x1 - x0 not in (1280, 400) and x1 - x0 not in script_bands:
+            clip = compose_frames(bands, recipe, n_frames=64)
+            script_bands[x1 - x0] = (family, torch.from_numpy(
+                clip[32:64, y0:y1, x0:x1].copy()).cuda())
     g = torch.Generator().manual_seed(7)
     cases = [
         ("fixture band", band),
         ("ch fixture band", band_ch),
+        *((f"{fam} fixture band", b) for fam, b in script_bands.values()),
         ("random", torch.randint(0, 256, tuple(band.shape), generator=g,
                                  dtype=torch.uint8).cuda()),
         ("ragged", torch.randint(0, 256, (32, 37, 301, 3), generator=g,
@@ -328,7 +402,8 @@ def kernel_parity():
     print(f"K2 one-pixel frames of {len(rgb)} colours: stats bit-equal to the plain "
           "version's, gray bit-exact", flush=True)
     p = k2.ScanParams()
-    for key, fr in (("K2", band), ("K2_ch_area", band_ch)):
+    for key, fr in (("K2", band), ("K2_ch_area", band_ch),
+                    *((f"K2_w{w}", b) for w, (_, b) in sorted(script_bands.items()))):
         T, H, W, _ = fr.shape
         Hp, Wp = k2.padded_hw(H, W)
         geo = k2.launch_geometry(T, H, W)
@@ -346,11 +421,13 @@ def kernel_parity():
     return rows
 
 
-def drive(label, clip, area, reference, engine, card, spy=None):
-    """Two runs (cold, warm) of ``SubtitleExtractor(clip, area).run()`` with
-    the default config for the engine's language, the launch counts set to 0
-    just before each and read just after; both SRTs must equal
-    ``reference``. Returns the warm run's (launches, extractor)."""
+def drive(label, clip, area, reference, engine, card, spy=None, runs=("cold", "warm"),
+          matches=str.__eq__):
+    """Runs (cold, warm) of ``SubtitleExtractor(clip, area).run()`` with the
+    default config for the engine's language, the launch counts set to 0
+    just before each and read just after; every SRT must equal
+    ``reference`` (``matches(got, reference)``). Returns the last run's
+    (launches, extractor)."""
     import torch
 
     from vse_tpu_torch.core.config import VseConfig
@@ -359,7 +436,7 @@ def drive(label, clip, area, reference, engine, card, spy=None):
     from vse_tpu_torch.pipeline.extractor import SubtitleExtractor
 
     cfg = VseConfig(language=engine.language)
-    for run in ("cold", "warm"):
+    for run in runs:
         ex = SubtitleExtractor(clip, area, cfg, engine=engine, device="cuda")
         if spy is not None:
             spy(ex)
@@ -374,11 +451,11 @@ def drive(label, clip, area, reference, engine, card, spy=None):
         print(f"{label} ({run}) on {card}: pass seconds {secs}, {ex.n_spans} spans, "
               f"{ex.n_samples} OCR samples, launches {launches}, peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
-        if got != reference:
+        if not matches(got, reference):
             raise AssertionError(
                 f"{label}: SRT differs from the reference:\n--- got\n{got}\n--- want\n{reference}")
-    print(f"{label}: SRT equals the JAX reference ({reference.count('-->')} cues, "
-          "timings and text)", flush=True)
+    print(f"{label}: SRT {'equals' if got == reference else 'matches'} the JAX reference "
+          f"({reference.count('-->')} cues, timings and text)", flush=True)
     return launches, ex
 
 
@@ -449,8 +526,93 @@ def main_path(card: str):
         print(f"ch rec graphs: {len(rec)} captured, input shapes "
               f"{sorted(k[0] for k in rec)}; CUDA-graph pools hold {graph_pools_mib():.1f} "
               f"MiB ({pools_before:.1f} MiB before the ch engine)", flush=True)
+        del engine, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        script_paths(card, tmp, by_path)
     launches = {k: sum(p[k] for p in by_path.values()) for k in ("K1", "K2")}
     return launches, by_path
+
+
+def script_paths(card, tmp, by_path):
+    """Phase 7: the keyframe strategy for each of the ten non-CJK families,
+    each with its own engine, freed (with its CUDA-graph pools) before the
+    next. Every keyframe sample's OCR lines must equal the JAX extractor's
+    records, and the SRT the JAX CLI's, but for ``FAULT_11``; every family
+    runs before a failure is raised."""
+    import torch
+
+    from vse_tpu_torch.pipeline.ocr_engine import OcrEngine
+    from vse_tpu_torch.video.synth import (
+        SCRIPT_FAMILIES, compose_clip, load_script_fixture, load_script_reference, recipe_area,
+    )
+
+    failures, frames = [], None  # one 1.4 GB frame buffer for every family's clip
+    for family in SCRIPT_FAMILIES:
+        t0 = time.perf_counter()
+        bands, recipe = load_script_fixture(family)
+        ref = load_script_reference(family)
+        engine = OcrEngine(language=ref["language"], device="cuda")
+        load_s = time.perf_counter() - t0
+        clip = compose_clip(bands, recipe, os.path.join(tmp, f"{family}.avi"), out=frames)
+        frames = clip.frames
+        seen_runs = []
+
+        def spy(ex):  # every keyframe sample's lines, as refine_keyframe_spans gets them
+            refine, seen = ex.refine_keyframe_spans, []
+            seen_runs.append(seen)
+
+            def keep_lines(spans, samples):
+                seen.extend([s[1], [q[0][0], q[1][0], q[0][1], q[2][1]], t, p]
+                            for s in samples for q, (t, p) in zip(s[2], s[3]))
+                return refine(spans, samples)
+            ex.refine_keyframe_spans = keep_lines
+
+        label = f"{family} ({ref['language']}, C = {engine.charset.vocab_size + 1}), keyframe"
+        runs = ("cold", "warm") if family in SCRIPT_WARM else ("cold",)
+        f11 = FAULT_11.get(family, {})
+
+        def matches(got, want):  # the reference, or it with the fault-11 cues
+            cues = want.split("\n\n")
+            for i, text in f11.get("cues", {}).items():
+                cues[i - 1] = "\n".join(cues[i - 1].split("\n")[:2] + [text])
+            return got in (want, "\n\n".join(cues))
+
+        try:
+            kf, ex = drive(label, clip, recipe_area(recipe), ref["srt"], engine, card, spy, runs,
+                           matches)
+        except AssertionError as e:  # an SRT that differs: go on to the next family
+            failures.append(str(e))
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        want, atol = ref["lines"], f11.get("score_atol", SCORE_ATOL)
+        worst = 0.0
+        for run, seen in zip(runs, seen_runs):
+            bad = [(r, q) for r, q in zip(seen, want)
+                   if r[0] != q[0] or r[2] not in (q[2], f11.get("texts", {}).get(q[2]))
+                   or max(abs(a - b) for a, b in zip(r[1], q[1])) > 2
+                   or (r[1] == q[1] and abs(r[3] - q[3]) > atol)]
+            if len(seen) != len(want) or bad:
+                failures.append(f"{label} ({run}): {len(seen)} OCR lines against the JAX "
+                                f"package's {len(want)}; (port, JAX) pairs that differ:\n{bad}")
+            worst = max([worst] + [abs(r[3] - q[3]) for r, q in zip(seen, want) if r[1] == q[1]])
+        n_batches = -(-len(clip.frames) // 32)
+        n_chunks = -(-ex.n_samples // ex.config.frame_batch)
+        if kf["K2"] != n_batches or kf["K1"] != n_chunks:
+            failures.append(f"{label}: launches {kf}, want K2 {n_batches}, K1 {n_chunks}")
+        moved = sum(r[1] != q[1] for r, q in zip(seen, want))
+        print(f"{label}: engine load {load_s:.2f} s; {len(seen)} OCR lines, {moved} boxes moved "
+              f"(by at most 2 px), score max difference {worst!r} where the box is equal; "
+              f"texts {sorted({r[2] for r in seen})}", flush=True)
+        by_path[family] = kf
+        del engine, ex
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(label, t0)
+    if failures:
+        raise AssertionError("phase 7:\n" + "\n".join(failures))
 
 
 def fps_path(label, clip, reference, raw_ref, engine, card):
@@ -543,6 +705,7 @@ def main() -> int:
     phase("kernel parity", t0)
 
     launches, by_path = main_path(card)
+    from vse_tpu_torch.video.synth import SCRIPT_FAMILIES, load_script_fixture
 
     meta = {
         "K1": ("ctc_greedy_decode", "vse_tpu_torch/csrc/ctc_decode.cu",
@@ -554,8 +717,12 @@ def main() -> int:
     # and 1280-wide band, ch's C = 21,060 and 400-wide band; no path reads
     # japan's C = 21,249
     en_paths, ch_paths = ("keyframe", "fps", "fps_short"), ("ch_keyframe", "ch_fps_short")
-    row_paths = {"K1": en_paths, "K1_c21060": ch_paths, "K1_c21249": (),
-                 "K2": en_paths, "K2_ch_area": ch_paths}
+    row_paths = {"K1": en_paths, "K1_c293": ("latin",), "K1_c21060": ch_paths,
+                 "K1_c21249": (), "K2": en_paths, "K2_ch_area": ch_paths}
+    areas = {f: load_script_fixture(f)[1]["area"] for f in SCRIPT_FAMILIES}
+    for key in rows:
+        if key.startswith("K2_w"):  # the families whose area is this wide
+            row_paths[key] = tuple(f for f, a in areas.items() if a[3] - a[2] == int(key[4:]))
     kernels = []
     for key, (name, src, replaces) in meta.items():
         for row_key, paths in row_paths.items():
@@ -578,10 +745,12 @@ def main() -> int:
         }
         if key == "K1":
             entry["half"] = r["half"]
+            entry["at_c293"] = rows["K1_c293"]
             entry["at_c21060"] = rows["K1_c21060"]
             entry["at_c21249"] = rows["K1_c21249"]
         else:
             entry["at_ch_area"] = rows["K2_ch_area"]
+            entry["at_scripts"] = {k: v for k, v in rows.items() if k.startswith("K2_w")}
         kernels.append(entry)
     print(f"[phase] total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -54,7 +54,7 @@ def test_ch_charset_and_families_match_jax():
     for lang in LANGUAGES:
         assert charset.script_family(lang) == jax_charset.script_family(lang), lang
     # a family that is not ported yet raises and names the family
-    for lang, family in (("korean", "korean"), ("ru", "cyrillic"), ("de", "latin")):
+    for lang, family in (("japan", "japan"), ("chinese_cht", "chinese_cht")):
         with pytest.raises(NotImplementedError, match=repr(family)):
             charset.get_charset(lang)
 
@@ -157,9 +157,10 @@ def test_ch_engine_reads_what_the_jax_engine_reads(frames):
     top class's softmax probability over 21,060 classes, and the emulated
     logits differ from flax's by up to 1.4 where the LSTM carries a flipped
     bf16 rounding (``test_ch_crnn_emulation_matches_flax_bf16_on_rendered_crops``):
-    scores within 0.07 (measured at most 0.055 on these frames; en's 69
-    classes stay within 0.02), and on the same side of the area gate's
-    ``drop_score`` (0.75) as the JAX engine's."""
+    scores within 0.005 (0.07 while the crops' ``48 / bh`` was a reciprocal
+    multiply, ROADMAP fault 10, and the static watermark's garbage read was
+    0.055 off), and on the same side of the area gate's ``drop_score``
+    (0.75) as the JAX engine's."""
     port = OcrEngine("ch", config=VseConfig(language="ch", max_batch_size=2), device="cpu")
     assert port.family == "ch" and port.charset.vocab_size + 1 == CH_CLASSES
     assert port.rec_model.ctc_fc.out_features == CH_CLASSES
@@ -172,7 +173,7 @@ def test_ch_engine_reads_what_the_jax_engine_reads(frames):
         assert [t for t, _ in g_res] == [t for t, _ in r_res]
         assert g_box == r_box
         g_p, r_p = np.array([p for _, p in g_res]), np.array([p for _, p in r_res])
-        np.testing.assert_allclose(g_p, r_p, atol=0.07)
+        np.testing.assert_allclose(g_p, r_p, atol=0.005)
         assert np.array_equal(g_p > 0.75, r_p > 0.75)
 
 
@@ -180,10 +181,15 @@ def test_to_logical_is_the_identity_for_ch_and_raises_for_unported_passes():
     eng = OcrEngine.__new__(OcrEngine)
     eng.family = "ch"
     assert eng._to_logical("你好世界") == "你好世界"
-    for family in ("arabic", "cyrillic", "el"):
+    # the arabic, cyrillic and el passes are ported: each is the JAX
+    # package's (tests/test_torch_scripts.py holds them on drawn strings)
+    from vse_tpu.core.arabic import visual_to_logical
+    from vse_tpu.post.homoglyph import normalize_script
+
+    for family, text in (("arabic", "مرحبا 123"), ("cyrillic", "пpивeт"), ("el", "Kαλo")):
         eng.family = family
-        with pytest.raises(NotImplementedError, match=family):
-            eng._to_logical("abc")
+        want = visual_to_logical(text) if family == "arabic" else normalize_script(text, family)
+        assert eng._to_logical(text) == want != text
         assert eng._to_logical("") == ""
 
 

@@ -30,9 +30,10 @@ from vse_tpu_torch.core.config import VseConfig
 from vse_tpu_torch.pipeline.extractor import SubtitleExtractor
 from vse_tpu_torch.video.synth import SMOKE_FIXTURE, compose_clip, compose_frames, load_fixture
 
-# a line's score against the JAX package's (see
-# tests/test_torch_ch.py::test_ch_engine_reads_what_the_jax_engine_reads)
-SCORE_ATOL = 0.07
+# a line's score against the JAX package's: 0.07 while the crops' ``48 / bh``
+# was a reciprocal multiply (ROADMAP fault 10: the static watermark's garbage
+# read was 0.0546 off); the emulated models' last bits leave 0.0038
+SCORE_ATOL = 0.005
 
 
 def fixture_file(name):

@@ -46,7 +46,10 @@ def logits_with_ties(n, t, c, seed):
 
 
 @pytest.mark.parametrize("t", [1, 80])
-@pytest.mark.parametrize("c", [1, 69, 1000, 21060, 21249])
+# en, the ten non-CJK heads (C <= 128: 8 lanes a step; C <= 512: 16), a
+# wide fused head, ch and japan (the two-launch path)
+@pytest.mark.parametrize("c", [1, 69, 83, 98, 99, 111, 139, 147, 162, 201, 293, 298, 1000,
+                               21060, 21249])
 def test_k1_cuda_matches_plain(cuda, c, t):
     x = logits_with_ties(64, t, c, seed=c + t).to(cuda)
     before = k1.launches
@@ -89,8 +92,8 @@ def test_k1_cuda_unaligned_rows(cuda):
 
 
 def device_ops(fn):
-    """Names of the device operations (kernels, copies, memsets) that one
-    call of ``fn`` issues, with host syncs raising inside it."""
+    """(name, stream) of each device-side record the profiler returns for
+    one call of ``fn``, with host syncs raising inside it."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -100,26 +103,60 @@ def device_ops(fn):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [(e.name, getattr(e, "device_resource_id", None)) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
 
 
-@pytest.mark.parametrize("c,n_kernels", [(69, 1), (21060, 2), (21249, 2)])
+def assert_only_kernels(fn, n_kernels, marker, attempts=3):
+    """``fn`` issues exactly ``n_kernels`` device operations, each a kernel
+    whose name holds ``marker``, all on one stream.
+
+    The profiler (CUPTI) now and then loses activity records: on the card,
+    3 of 400 profiled K1 decodes in one process came back short, twice
+    without the row kernel of the two-launch path and once with no record
+    at all, while the decode ran. So a count that comes back short with
+    nothing but the wanted kernels in it is taken again, up to
+    ``attempts`` times; any other record, or one kernel too many, fails at
+    once."""
+    for _ in range(attempts):
+        work = device_ops(fn)
+        msg = (f"want {n_kernels} '{marker}' kernels on one stream; the profiler's "
+               f"records: {work}")
+        assert all(marker in n for n, _ in work) and len({s for _, s in work}) <= 1, msg
+        assert len(work) <= n_kernels, msg
+        if len(work) == n_kernels:
+            return
+    raise AssertionError(f"{msg} ({attempts} profiles, each short)")
+
+
+@pytest.mark.parametrize("c,n_kernels", [(69, 1), (293, 1), (21060, 2), (21249, 2)])
 def test_k1_decode_issues_only_its_kernels(cuda, c, n_kernels):
+    """The profiler's device records during one decode: exactly K1's
+    kernels (one for the fused path, two for large C), on one stream. C =
+    293 is latin's head, on the 16-lane fused path."""
     x = logits_with_ties(8, 80, c, seed=3).to(cuda)
-    names = device_ops(lambda: k1.ctc_greedy_decode(x))
-    assert len(names) == n_kernels and all("ctc_" in n for n in names), names
+    assert_only_kernels(lambda: k1.ctc_greedy_decode(x), n_kernels, "ctc_")
 
 
 def test_k2_issues_only_its_kernel(cuda):
     x = torch.zeros((32, 104, 1280, 3), dtype=torch.uint8, device=cuda)
-    names = device_ops(lambda: k2.scan_stats_u8(x))
-    assert len(names) == 1 and "keyframe_stats" in names[0], names
+    assert_only_kernels(lambda: k2.scan_stats_u8(x), 1, "keyframe_stats")
 
 
 K2_SHAPES = [
     (32, 104, 1280),  # the main path's band
     (32, 104, 400),  # ch's band (its fixture's area is 400 wide)
     (20, 104, 400),  # ch's tail batch
+    (32, 104, 272),  # arabic's and ka's bands (the families' areas are 272-528 wide)
+    (32, 104, 304),  # korean's band
+    (32, 104, 312),  # th's band
+    (32, 104, 328),  # cyrillic's band
+    (32, 104, 384),  # el's band
+    (32, 104, 456),  # devanagari's band
+    (32, 104, 472),  # te's band
+    (32, 104, 488),  # latin's band
+    (32, 104, 528),  # ta's band
+    (20, 104, 272),  # a family's tail batch (500 frames = 15 x 32 + 20)
     (32, 37, 301),  # ragged
     (1, 8, 128),
     (5, 38, 300),  # W % 16 != 0 and H % 4 != 0

@@ -255,7 +255,7 @@ def test_en_charset_and_config_match_jax():
         assert got.decode_ids(range(100)) == want.decode_ids(range(100))
     assert en.folded().without_space().vocab_size == 68
     with pytest.raises(NotImplementedError):  # a family not ported yet
-        charset.get_charset("korean")
+        charset.get_charset("japan")
     ours = VseConfig()
     for f in dataclasses.fields(VseConfig):  # every field the port keeps
         assert getattr(ours, f.name) == getattr(JaxConfig(), f.name), f.name

@@ -57,11 +57,41 @@ With ``--language ch``, the fixtures of the default language instead:
                           extract CLIP_FPS --language ch, and its records
                           before the filters
 
+With ``--language <family>``, for one of the ten non-CJK families (latin,
+cyrillic, devanagari, arabic, korean, el, ta, te, ka, th), the family's
+keyframe fixture instead, each family a key of three shared files:
+
+  bands_scripts.npz       ``<family>_band0..2``: three cues of real words
+                          (``SCRIPT_CUES``), drawn with the renderer the
+                          family's head was trained with
+                          (``vse_tpu/train/synth.py::render_line``): DejaVu
+                          Sans through PIL for latin, cyrillic, el and ka
+                          (arabic the same, right to left through raqm, or
+                          its shaped forms from ``core/arabic.py::
+                          render_forms`` without raqm), the hangul stroke
+                          composer for korean, the stroke fonts of
+                          ``core/strokefont.py`` for th, devanagari, ta and
+                          te (both composers at 4x, then downsampled, as
+                          for ch)
+  recipe_scripts.json     ``{family: recipe}``: the keyframe clip of
+                          ``recipe.json`` with the family's cues, its
+                          language code, and its subtitle area: full width,
+                          or narrowed around the cues where the scan's 2%
+                          text-cell vote would miss a cue over 1280 px
+                          (ROADMAP fault 8)
+  reference_scripts.json  ``{family: {"language", "srt", "lines"}}``: the
+                          JAX CLI's SRT of ``extract CLIP --area A --mode
+                          fast --language CODE`` (word segmentation on), and
+                          the JAX extractor's OCR lines of every keyframe
+                          sample, [frame_no, [xmin, xmax, ymin, ymax],
+                          text, score], in sample order
+
 Band files that exist are reused as committed (they are rendered only when
-they are missing). Run it with JAX on the CPU (it needs PIL, OpenCV and the
+they are missing; a family whose bands are missing from
+``bands_scripts.npz`` is drawn and added). Run it with JAX on the CPU (it needs PIL, OpenCV and the
 en and ch rec heads):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py [--language ch]
+    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py [--language ch|<family>]
 """
 
 from __future__ import annotations
@@ -114,6 +144,25 @@ CH_SUPERSAMPLE = 4
 # share over a 1280-wide area is 0.07-0.24%. Anti-aliased and in an area
 # of 400 x 104 around them, it is 2.9-6.1%.
 CH_AREA_X = (440, 840)
+# the ten non-CJK families: (language code, three cues), fixed before either
+# package read them; the cue frames are those of CUES
+SCRIPT_CUES = {
+    "latin": ("fr", ["bonjour tout le monde", "merci beaucoup", "à bientôt mes amis"]),
+    "cyrillic": ("ru", ["привет мир", "как дела", "до свидания"]),
+    "devanagari": ("hi", ["नमस्ते दुनिया", "धन्यवाद", "फिर मिलेंगे"]),
+    "arabic": ("ar", ["مرحبا بالعالم", "شكرا جزيلا", "الحلقة 12"]),
+    "korean": ("korean", ["안녕하세요", "감사합니다", "잘 가요"]),
+    "el": ("el", ["γεια σου κόσμε", "καλημέρα", "ευχαριστώ πολύ"]),
+    "ta": ("ta", ["வணக்கம்", "நன்றி", "போய் வருகிறேன்"]),
+    "te": ("te", ["నమస్కారం", "ధన్యవాదాలు", "మళ్ళీ కలుద్దాం"]),
+    "ka": ("ka", ["გამარჯობა", "მადლობა", "ნახვამდის"]),
+    "th": ("th", ["สวัสดี", "ขอบคุณ", "ลาก่อน"]),
+}
+SCRIPT_CELL = 44  # stroke fonts' cell height, as ch's
+HANGUL_SIZE = 40
+# the smallest full-width text-cell share (of the scan's 4 x 8 cells) a cue
+# must reach for the area to stay 1280 px wide; the vote is at 2%
+TEXT_CELL_MARGIN = 0.03
 EXTRAS = [
     ("watermark", "VSE TV", (160, 48), [24, 1080], 1, N),
     ("scene", "CITY CAFE", (240, 48), [330, 520], 201, 240),
@@ -147,6 +196,142 @@ def render_band_ch(text: str) -> np.ndarray:
     draw_text(ImageDraw.Draw(img), ((W * k - tw) // 2, 30 * k), text, CH_CELL * k,
               script, fill=(255, 255, 255), stroke_width=2 * k, stroke_fill=(0, 0, 0))
     return np.asarray(img.resize((W, BAND_H), Image.LANCZOS), np.uint8)
+
+
+def render_band_script(family: str, text: str) -> np.ndarray:
+    """A cue band of one of the ten non-CJK families, centred as
+    ``render_band`` centres, with that family's training renderer."""
+    from PIL import Image, ImageDraw, ImageFont, features
+
+    if family in ("latin", "cyrillic", "el", "ka"):
+        return render_band(text)
+    if family == "arabic":
+        font = ImageFont.truetype(FONT, 36)
+        img = Image.new("RGB", (W, BAND_H), BG)
+        d = ImageDraw.Draw(img)
+        if features.check("raqm"):  # raqm shapes the logical text itself
+            glyphs, kw = text, {"direction": "rtl"}
+        else:
+            from vse_tpu.core.arabic import render_forms
+
+            glyphs, kw = render_forms(text)[0], {}
+        tw = d.textlength(glyphs, font=font, **kw)
+        d.text(((W - tw) // 2, 30), glyphs, font=font, fill=(255, 255, 255),
+               stroke_width=2, stroke_fill=(0, 0, 0), **kw)
+        return np.asarray(img, np.uint8)
+    k = CH_SUPERSAMPLE
+    img = Image.new("RGB", (W * k, BAND_H * k), BG)
+    d = ImageDraw.Draw(img)
+    if family == "korean":
+        from vse_tpu.core.hangul import render_hangul_text, text_width
+
+        font = ImageFont.truetype(FONT, 36 * k)
+        tw = text_width(text, HANGUL_SIZE * k, font, d)
+        render_hangul_text(d, ((W * k - tw) // 2, 30 * k), text, HANGUL_SIZE * k, font,
+                           fill=(255, 255, 255), stroke_width=2 * k, stroke_fill=(0, 0, 0))
+    else:
+        from vse_tpu.core.strokefont import draw_text, line_width, stroke_script_for
+
+        script = stroke_script_for(family)
+        tw = line_width(script, text, SCRIPT_CELL * k)
+        draw_text(d, ((W * k - tw) // 2, 30 * k), text, SCRIPT_CELL * k, script,
+                  fill=(255, 255, 255), stroke_width=2 * k, stroke_fill=(0, 0, 0))
+    return np.asarray(img.resize((W, BAND_H), Image.LANCZOS), np.uint8)
+
+
+def script_area(bands: list) -> list:
+    """The subtitle area for a family's three bands: full width when the
+    JAX scan's text-cell share of each band over 1280 px clears
+    ``TEXT_CELL_MARGIN``, else the union of the cues' ink columns plus 40
+    px a side, on multiples of 8."""
+    from vse_tpu.kernels.keyframe import scan_stats_u8
+
+    full = min(float(scan_stats_u8(np.stack([b, b]))[1, 1]) for b in bands)
+    if full >= TEXT_CELL_MARGIN:
+        return [BAND_Y, BAND_Y + BAND_H, 0, W]
+    ink = np.nonzero(np.any([np.any(b != np.asarray(BG, np.uint8), axis=(0, 2))
+                             for b in bands], axis=0))[0]
+    x0 = max(0, (int(ink[0]) - 40) // 8 * 8)
+    x1 = min(W, -(-(int(ink[-1]) + 41) // 8) * 8)
+    narrow = min(float(scan_stats_u8(np.stack([b[:, x0:x1]] * 2))[1, 1]) for b in bands)
+    print(f"text-cell share over 1280 px {full:.4f}; over x {x0}-{x1} {narrow:.4f}")
+    return [BAND_Y, BAND_Y + BAND_H, x0, x1]
+
+
+def jax_keyframe_reference(frames: np.ndarray, area: list, language: str):
+    """(SRT, lines) of the JAX CLI's ``extract CLIP --area A --mode fast
+    --language CODE`` on the clip: the lines are its extractor's OCR lines
+    of every keyframe sample, before the gate, [frame_no, [xmin, xmax,
+    ymin, ymax], text, score]."""
+    from vse_tpu.cli import main as vse_main
+    from vse_tpu.pipeline.extractor import SubtitleExtractor
+
+    lines = []
+    refine = SubtitleExtractor.refine_keyframe_spans
+
+    def keep_lines(self, spans, samples):
+        # samples: [(span, frame_no, dt_box, rec_res, frame)]
+        lines.extend(
+            [int(s[1]), [int(q[0][0]), int(q[1][0]), int(q[0][1]), int(q[2][1])], t, float(p)]
+            for s in samples for q, (t, p) in zip(s[2], s[3]))
+        return refine(self, spans, samples)
+
+    SubtitleExtractor.refine_keyframe_spans = keep_lines
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            clip = os.path.join(tmp, "smoke.avi")
+            write_lossless(frames, clip)
+            rc = vse_main(["extract", clip, "--area", ",".join(str(v) for v in area),
+                           "--mode", "fast", "--language", language])
+            if rc != 0:
+                raise SystemExit(f"vse_tpu.cli extract returned {rc}")
+            with open(os.path.join(tmp, "smoke.srt"), encoding="utf-8") as f:
+                srt = f.read()
+    finally:
+        SubtitleExtractor.refine_keyframe_spans = refine
+    print(f"--- {language}\n{srt}")
+    return srt, lines
+
+
+def main_script(family: str) -> None:
+    from vse_tpu_torch.video.synth import compose_frames
+
+    language, texts = SCRIPT_CUES[family]
+    path = os.path.join(OUT, "bands_scripts.npz")
+    all_bands = {}
+    if os.path.exists(path):
+        with np.load(path) as z:
+            all_bands = {k: np.asarray(z[k]) for k in z.files}
+    names = [f"{family}_band{i}" for i in range(3)]
+    if not all(n in all_bands for n in names):
+        all_bands.update({n: render_band_script(family, t) for n, t in zip(names, texts)})
+        np.savez_compressed(path, **dict(sorted(all_bands.items())))
+    bands = {n: all_bands[n] for n in names}
+    recipe = keyframe_recipe([
+        {"band": n, "text": t, "first": a, "last": b}
+        for n, t, (_, a, b) in zip(names, texts, CUES)])
+    recipe.update(language=language, band_files=["bands_scripts.npz"],
+                  area=script_area([bands[n] for n in names]))
+    recipes = read_json("recipe_scripts.json")
+    recipes[family] = recipe
+    write_json("recipe_scripts.json", dict(sorted(recipes.items())))
+    srt, lines = jax_keyframe_reference(compose_frames(bands, recipe), recipe["area"],
+                                        language)
+    refs = read_json("reference_scripts.json")
+    refs[family] = {"language": language, "srt": srt, "lines": lines}
+    with open(os.path.join(OUT, "reference_scripts.json"), "w", encoding="utf-8") as f:
+        json.dump(dict(sorted(refs.items())), f, ensure_ascii=False)
+        f.write("\n")
+    print(f"--- {family}: {len(refs[family]['lines'])} lines, texts "
+          f"{sorted(set(r[2] for r in refs[family]['lines']))}")
+
+
+def read_json(name: str) -> dict:
+    path = os.path.join(OUT, name)
+    if not os.path.exists(path):
+        return {}
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
 
 
 def load_or_render(name: str, render) -> dict:
@@ -272,11 +457,14 @@ def main_ch() -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--language", default="en", choices=["en", "ch"])
+    ap.add_argument("--language", default="en", choices=["en", "ch", *SCRIPT_CUES])
     args = ap.parse_args()
     os.makedirs(OUT, exist_ok=True)
     if args.language == "ch":
         main_ch()
+        return
+    if args.language in SCRIPT_CUES:
+        main_script(args.language)
         return
     from vse_tpu_torch.video.synth import compose_frames, noisy_band
 

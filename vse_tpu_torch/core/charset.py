@@ -4,14 +4,18 @@ module that the ported families need).
 A language maps onto a script family (``script_family``), and the family
 names the rec head and its character set. ``en`` is built in; the dict
 families read a one-character-per-line file (the PaddleOCR format) from the
-port's own copy under ``vse_tpu_torch/assets/dicts/<family>.txt``. This
-slice ports ``en`` and ``ch``; the other families raise until their heads,
-dict files and decode passes are ported.
+port's own copy under ``vse_tpu_torch/assets/dicts/<family>.txt``. Every
+family of the JAX package's registry is ported but japan and chinese_cht,
+which raise until their heads and dict files are ported (the JAX package
+would fall back to the en charset for a family with no dict file; no
+language of its ``LANGUAGES`` reaches that fallback, and the port raises
+instead).
 
 CTC convention: index 0 is the blank; characters are 1..N. A trailing space
 character is appended when ``use_space_char`` (PaddleOCR-compatible). A rec
 head's ``vse_meta.json`` says which variant its classes were trained on
-(``fold_case``, ``use_space_char``); ``OcrEngine`` applies them.
+(``fold_case``, ``use_space_char``, ``jamo``, ``homoglyph_fold``);
+``OcrEngine`` applies them (``head_charset``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
+
+from vse_tpu_torch.core.hangul import FINALS, INITIALS, MEDIALS, compose, is_syllable
 
 # Deterministic ASCII charset (printable ASCII minus control chars).
 EN_CHARS = (
@@ -49,7 +55,10 @@ DICT_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "dicts"
 )
 # families whose head, dict file and decode passes are ported
-PORTED_DICT_FAMILIES = ("ch",)
+PORTED_DICT_FAMILIES = (
+    "ch", "latin", "cyrillic", "devanagari", "arabic", "korean", "el", "ta",
+    "te", "ka", "th",
+)
 # every ported family: en's charset is built in
 PORTED_FAMILIES = ("en",) + PORTED_DICT_FAMILIES
 
@@ -70,11 +79,15 @@ def script_family(language: str) -> str:
 
 @dataclass(frozen=True)
 class Charset:
-    """Immutable charset with the CTC blank at index 0."""
+    """Immutable charset with the CTC blank at index 0.
+
+    ``aliases`` records the (variant, canonical) pairs folded out of the
+    classes by ``aliased``; decoding never emits a variant."""
 
     name: str
     chars: Tuple[str, ...]
     use_space_char: bool = True
+    aliases: Tuple[Tuple[str, str], ...] = ()
 
     def __post_init__(self):
         if self.use_space_char and " " not in self.chars:
@@ -92,7 +105,16 @@ class Charset:
 
     def without_space(self) -> "Charset":
         """Space-class-free variant."""
-        return Charset(self.name, tuple(c for c in self.chars if c != " "), False)
+        return Charset(self.name, tuple(c for c in self.chars if c != " "), False,
+                       self.aliases)
+
+    def aliased(self, alias_map: Dict[str, str]) -> "Charset":
+        """Homoglyph-folded variant: each alias key loses its class (its
+        canonical value keeps one)."""
+        return Charset(
+            self.name, tuple(c for c in self.chars if c not in alias_map),
+            self.use_space_char, tuple(sorted(alias_map.items())),
+        )
 
     def folded(self) -> "Charset":
         """Case-folded variant: lowercase letters only (the head reads
@@ -115,6 +137,63 @@ class Charset:
                 if line:
                     chars.append(line)
         return cls(name=name, chars=tuple(chars), use_space_char=use_space_char)
+
+
+# Conjoining-jamo token blocks (Unicode choseong/jungseong/jongseong): each
+# positional jamo is its own CTC class, so initial-ㄱ and final-ㄱ differ and
+# syllables recompose unambiguously at decode time.
+_CHOSEONG = tuple(chr(0x1100 + i) for i in range(19))
+_JUNGSEONG = tuple(chr(0x1161 + i) for i in range(21))
+_JONGSEONG = tuple(chr(0x11A8 + i) for i in range(27))  # index 1..27 of FINALS
+
+
+@dataclass(frozen=True)
+class JamoCharset(Charset):
+    """A korean charset factored into positional-jamo classes: 19 initials,
+    21 medials and 27 finals beside the non-Hangul characters. Decoding
+    recomposes each (initial, medial[, final]) run into its syllable; a
+    lone jamo decodes to its compatibility form (ㅋㅋㅋ)."""
+
+    def decode_ids(self, ids: Sequence[int]) -> str:
+        toks = [self.chars[i - 1] for i in ids if 1 <= i <= len(self.chars)]
+        out: List[str] = []
+        i, n = 0, len(toks)
+        while i < n:
+            o = ord(toks[i])
+            if 0x1100 <= o <= 0x1112:  # choseong
+                if i + 1 < n and 0x1161 <= ord(toks[i + 1]) <= 0x1175:
+                    l, v = o - 0x1100, ord(toks[i + 1]) - 0x1161
+                    i += 2
+                    t = 0
+                    if i < n and 0x11A8 <= ord(toks[i]) <= 0x11C2:
+                        t = ord(toks[i]) - 0x11A7
+                        i += 1
+                    out.append(compose(l, v, t))
+                else:  # lone consonant -> compatibility form
+                    out.append(INITIALS[o - 0x1100])
+                    i += 1
+            elif 0x1161 <= o <= 0x1175:  # stray vowel
+                out.append(MEDIALS[o - 0x1161])
+                i += 1
+            elif 0x11A8 <= o <= 0x11C2:  # stray final
+                out.append(FINALS[o - 0x11A7])
+                i += 1
+            else:
+                out.append(toks[i])
+                i += 1
+        return "".join(out)
+
+
+def to_jamo(base: Charset) -> JamoCharset:
+    """Factor a syllable-level korean charset into the jamo charset: the
+    non-Hangul characters keep their classes; syllables and compatibility
+    jamo give way to the 67 positional jamo classes."""
+    keep = tuple(
+        c for c in base.chars
+        if c != " " and not is_syllable(c) and not 0x3130 <= ord(c) < 0x3190
+    )
+    return JamoCharset(base.name, keep + _CHOSEONG + _JUNGSEONG + _JONGSEONG,
+                       base.use_space_char)
 
 
 _LOADED: Dict[str, Charset] = {}

@@ -89,7 +89,9 @@ def crop_boxes_windowed(
     ymax_l = torch.clamp(ymax - y_start, 0.0, window - 1.0)
     bw = torch.clamp(xmax - xmin, min=1.0)
     bh = torch.clamp(ymax_l - ymin_l, min=1.0)
-    scale_y = out_h / bh
+    # a tensor quotient: ``out_h / bh`` would be ``bh.reciprocal() * out_h``
+    # in PyTorch, two roundings where XLA's divide has one
+    scale_y = torch.full_like(bh, out_h) / bh
     target_w = torch.clamp(bw * scale_y, max=float(out_w))
     scale_x = target_w / bw
     oy = torch.arange(out_h, dtype=torch.float32, device=dev)

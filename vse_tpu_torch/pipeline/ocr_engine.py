@@ -14,13 +14,14 @@ and boxes left to right (reference backend/tools/ocr.py:16-22,44-79).
 A language resolves to its script family as the reference's registry
 resolves it (``core/charset.py::script_family``); the family names the
 exported rec head (``checkpoints_torch/rec_<family>_mobile``), whose
-``vse_meta.json`` gives the charset variant it was trained on. This slice
-runs the ``en`` and ``ch`` heads.
+``vse_meta.json`` gives the charset variant it was trained on
+(``head_charset``). Every family runs but japan and chinese_cht, whose
+heads are not exported yet. Decoded text goes through the reference's
+script post-pass (``_to_logical``): visual -> logical order for arabic, the
+homoglyph fold for cyrillic and el.
 
 Not ported in this slice: rectified crops, beam decode, a device mesh, the
-server det/rec variants (modes auto and accurate), ``detect_batch``, the
-jamo and homoglyph charsets and the arabic, cyrillic and el script
-post-passes (``_to_logical`` raises for every family not ported).
+server det/rec variants (modes auto and accurate), ``detect_batch``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from typing import Any, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from vse_tpu_torch.core.charset import PORTED_FAMILIES, get_charset, script_family
+from vse_tpu_torch.core.arabic import HOMOGLYPHS, visual_to_logical
+from vse_tpu_torch.core.charset import Charset, get_charset, script_family, to_jamo
 from vse_tpu_torch.core.config import Mode, VseConfig
 from vse_tpu_torch.device import resolve_device
 from vse_tpu_torch.kernels.ctc_decode import ctc_greedy_decode
@@ -43,6 +45,7 @@ from vse_tpu_torch.ops.db_postprocess import db_postprocess
 from vse_tpu_torch.ops.image import (
     crop_boxes_windowed, letterbox_matmul, recip, refine_boxes_ink,
 )
+from vse_tpu_torch.post.homoglyph import normalize_script
 from vse_tpu_torch.weights import (
     from_jax_params, load_det_npz, load_rec_flat, load_rec_meta, rec_head_paths,
 )
@@ -115,6 +118,23 @@ def crops_tight(frames: torch.Tensor, boxes: torch.Tensor, rec_h: int,
     return crop_boxes_windowed(frames, refined, rec_h, rec_w)
 
 
+def head_charset(language: str, rec_meta: dict) -> Charset:
+    """The charset whose classes a rec head was trained on: the language's
+    charset with the head's ``vse_meta.json`` options applied in the JAX
+    engine's order (``vse_tpu/pipeline/ocr_engine.py``: case fold, no
+    space class, positional jamo, homoglyph fold)."""
+    cs = get_charset(language)
+    if rec_meta.get("fold_case", False):
+        cs = cs.folded()
+    if not rec_meta.get("use_space_char", True):
+        cs = cs.without_space()
+    if rec_meta.get("jamo", False):
+        cs = to_jamo(cs)
+    if rec_meta.get("homoglyph_fold", False):
+        cs = cs.aliased(HOMOGLYPHS)
+    return cs
+
+
 class OcrEngine:
     """Detector + recognizer on one device, fast mode, greedy decode."""
 
@@ -134,7 +154,7 @@ class OcrEngine:
             )
         self.language = language
         self.family = script_family(language)
-        self.charset = get_charset(language)
+        get_charset(language)  # raises for a family not ported
         rec_meta = load_rec_meta(self.family)
         if rec_meta is None:
             raise FileNotFoundError(
@@ -142,13 +162,7 @@ class OcrEngine:
                 "export one with tools/export_torch_weights.py"
             )
         # the head's class count and order are part of its weights
-        if rec_meta.get("fold_case", False):
-            self.charset = self.charset.folded()
-        if not rec_meta.get("use_space_char", True):
-            self.charset = self.charset.without_space()
-        for key in ("jamo", "homoglyph_fold"):
-            if rec_meta.get(key, False):
-                raise NotImplementedError(f"rec heads with {key!r} are not ported yet")
+        self.charset = head_charset(language, rec_meta)
         head_geo = rec_meta.get("geometry", "expand_y")
         want_geo = "tight1" if self.config.rec_crop_tighten else "expand_y"
         if head_geo != want_geo:
@@ -253,12 +267,13 @@ class OcrEngine:
         """The reference's script-aware decode post-pass
         (``vse_tpu/pipeline/ocr_engine.py::_to_logical``): visual -> logical
         order for arabic, the homoglyph fold for cyrillic and el, the
-        identity for every other family. The identity holds for every ported
-        family (``PORTED_FAMILIES``); any other raises, so that a pass not
-        ported yet cannot be skipped silently."""
-        if text and self.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"the {self.family!r} decode post-pass is not ported yet")
+        identity for every other family."""
+        if not text:
+            return text
+        if self.family == "arabic":
+            return visual_to_logical(text)
+        if self.family in ("cyrillic", "el"):
+            return normalize_script(text, self.family)
         return text
 
     def _format_results(self, B, boxes, valid, ids, mask, rec_scores,

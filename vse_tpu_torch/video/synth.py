@@ -17,8 +17,10 @@ background, so the clip needs no font, codec or OpenCV at run time.
 ``vse_tpu_torch/assets/smoke/`` holds the fixtures that ``chip_smoke.py``
 drives (made by ``tools/make_torch_smoke_fixture.py``): ``recipe.json``,
 three cues in a subtitle area, ``recipe_fps.json``, the same cues with a
-corner watermark and a short scene-text line and no area, and the ch clips
-``recipe_ch.json`` and ``recipe_ch_fps_short.json``.
+corner watermark and a short scene-text line and no area, the ch clips
+``recipe_ch.json`` and ``recipe_ch_fps_short.json``, and one keyframe clip
+for each of the ten non-CJK families in ``recipe_scripts.json`` (``{family:
+recipe}``, each with its ``language`` code; ``load_script_fixture``).
 """
 
 from __future__ import annotations
@@ -49,13 +51,47 @@ def load_fixture(path: str = SMOKE_FIXTURE, recipe: str = "recipe.json"
     return bands, rec
 
 
+SCRIPT_FAMILIES = ("latin", "cyrillic", "devanagari", "arabic", "korean", "el", "ta",
+                   "te", "ka", "th")
+
+
+def load_script_fixture(family: str, path: str = SMOKE_FIXTURE
+                        ) -> Tuple[Dict[str, np.ndarray], dict]:
+    """(bands, recipe) of a non-CJK family's keyframe clip: its recipe in
+    ``recipe_scripts.json``, its bands the ``<family>_`` keys of the shared
+    band file."""
+    with open(os.path.join(path, "recipe_scripts.json"), "r", encoding="utf-8") as f:
+        rec = json.load(f)[family]
+    bands: Dict[str, np.ndarray] = {}
+    for name in rec["band_files"]:
+        with np.load(os.path.join(path, name)) as z:
+            bands.update({k: np.asarray(z[k]) for k in z.files if k.startswith(f"{family}_")})
+    return bands, rec
+
+
+def load_script_reference(family: str, path: str = SMOKE_FIXTURE) -> dict:
+    """The JAX package's reference for a family's keyframe clip
+    (``reference_scripts.json``): ``language``, ``srt``, and ``lines``
+    [frame_no, [xmin, xmax, ymin, ymax], text, score] of every keyframe
+    sample."""
+    with open(os.path.join(path, "reference_scripts.json"), "r", encoding="utf-8") as f:
+        return json.load(f)[family]
+
+
 def compose_frames(bands: Dict[str, np.ndarray], recipe: dict,
-                   n_frames: Optional[int] = None) -> np.ndarray:
+                   n_frames: Optional[int] = None,
+                   out: Optional[np.ndarray] = None) -> np.ndarray:
     """uint8 RGB frames [N, H, W, 3] of the recipe (its first ``n_frames``
-    when given)."""
+    when given), written into ``out`` when it is given (a buffer of that
+    shape, reused across clips to spare a new 1.4 GB allocation each)."""
     n = recipe["n_frames"] if n_frames is None else n_frames
-    frames = np.empty((n, recipe["height"], recipe["width"], 3), np.uint8)
-    frames[:] = np.asarray(recipe["background"], np.uint8)
+    shape = (n, recipe["height"], recipe["width"], 3)
+    frames = np.empty(shape, np.uint8) if out is None else out
+    if frames.shape != shape:
+        raise ValueError(f"out has shape {frames.shape}, the recipe's frames {shape}")
+    background = np.empty(shape[1:], np.uint8)
+    background[:] = np.asarray(recipe["background"], np.uint8)
+    frames[:] = background  # whole-frame copies: faster than a 3-byte broadcast
     for cue in recipe["cues"]:
         band = bands[cue["band"]]
         y, x = cue.get("origin", recipe["band_origin"])
@@ -65,10 +101,12 @@ def compose_frames(bands: Dict[str, np.ndarray], recipe: dict,
 
 
 def compose_clip(bands: Dict[str, np.ndarray], recipe: dict, path: str,
-                 n_frames: Optional[int] = None) -> InMemoryVideo:
+                 n_frames: Optional[int] = None,
+                 out: Optional[np.ndarray] = None) -> InMemoryVideo:
     """The recipe's clip as an ``InMemoryVideo`` whose outputs go next to
-    ``path``."""
-    return InMemoryVideo(compose_frames(bands, recipe, n_frames), float(recipe["fps"]), path)
+    ``path`` (its frames written into ``out`` when it is given)."""
+    return InMemoryVideo(compose_frames(bands, recipe, n_frames, out), float(recipe["fps"]),
+                         path)
 
 
 def recipe_area(recipe: dict) -> Optional[SubtitleArea]:

@@ -5,11 +5,11 @@
   ``/``) plus its ``vse_meta.json``; ``from_jax_params`` maps that flat dict
   onto the ``CRNNRecognizer`` state dict at load. An array is f32, or, under
   the key ``bf16/<key>``, the uint16 bits of its bf16 value, which
-  ``load_rec_flat`` widens back to f32 (``rec_ch_mobile`` stores its conv,
-  dense and LSTM parameters so). A bf16-stored head loses nothing that the
-  engine reads, since the engine's emulation of the reference's bf16
-  numerics (``models/bf16.py::emulate``) rounds exactly those arrays to
-  bf16; its f32 ``forward`` runs on the rounded weights.
+  ``load_rec_flat`` widens back to f32 (every head but ``rec_en_mobile``
+  stores its conv, dense and LSTM parameters so). A bf16-stored head loses
+  nothing that the engine reads, since the engine's emulation of the
+  reference's bf16 numerics (``models/bf16.py::emulate``) rounds exactly
+  those arrays to bf16; its f32 ``forward`` runs on the rounded weights.
 - The mobile det: ``checkpoints/ppocr_v3_det_mobile.npz`` holds paddle
   tensors, already in torch layout; ``load_det_npz`` renames the BatchNorm
   statistics.
