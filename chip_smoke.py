@@ -61,16 +61,36 @@ Phases, each timed; any failure raises and the script exits non-zero:
    ``SCORE_ATOL``; ``reference_scripts.json``), but for the reads that
    ``FAULT_11`` lists (ROADMAP fault 11); K2 must launch once per 32-frame
    batch and K1 once per OCR chunk. Each engine and its CUDA-graph pools
-   are freed before the next.
+   are freed before the next;
+8. the last two CJK families, japan (C = 21,249, whose unaligned rows take
+   K1's two-launch path on the main path) and chinese_cht (C = 21,060),
+   each with its own engine, on its keyframe clip of
+   ``recipe_scripts.json``, held as in phase 7 (the JAX CLI's SRT, every
+   line's frame, text, box and score, but for ``FAULT_11``); K2 once per
+   32-frame batch, K1 once per OCR chunk, through the two-launch path; the
+   CUDA-graph pools printed after each;
+9. the batch surface: ``extract_many`` with the keyframe strategy on the
+   en keyframe clip and the short-cue clip given the same area (their
+   samples pooled into shared OCR chunks: K2 16 times a video, K1 once a
+   chunk, ceil(samples / frame_batch) chunks) and with the fps strategy on
+   the two no-area clips (their sampled frames interleaved into shared
+   batches), each video's SRT equal to the JAX package's ``extract_many``
+   on the same clips (``reference_many.json``); then one queue of two
+   tasks (the keyframe clip with its area, the short-cue clip without)
+   through ``ExtractionService`` in thread isolation, each SRT equal to its
+   single-video reference. Process isolation is tested on the CPU only
+   (``tests/test_torch_isolation.py``): a child needs a video file, and
+   this machine is not promised a decoder for one.
 
-Each path of phases 4-6 runs twice (cold, warm), and so do latin, arabic
-and korean in phase 7 (the other seven once), with the launch counts set to
-0 just before each run and read just after; ``launches_by_path`` holds the
-last run's of each path. Each timed row (a kernel's top-level numbers, and
-``at_c293``, ``at_c21060``, ``at_c21249``, ``at_ch_area`` and
-``at_scripts``) names the paths that run the kernel at its shape
-(``row_paths``: en's C = 69 and 1280-wide band, latin's C = 293, ch's C =
-21,060 and 400-wide band, the families' band widths) and their launches
+Each path of phases 4-6 runs twice (cold, warm), and so do latin, arabic,
+korean (phase 7) and japan (phase 8) (the other families once), with the
+launch counts set to 0 just before each run and read just after;
+``launches_by_path`` holds the last run's of each path. Each timed row (a
+kernel's top-level numbers, and ``at_c293``, ``at_c21060``, ``at_c21249``,
+``at_ch_area`` and ``at_scripts``) names the paths that run the kernel at
+its shape (``row_paths``: en's C = 69 and 1280-wide band with phase 9's
+paths, latin's C = 293, ch's and chinese_cht's C = 21,060, japan's C =
+21,249, ch's 400-wide band, the families' band widths) and their launches
 (``row_launches``); ``launches`` is the sum over all paths. The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this script, it exits non-zero and prints no result.
@@ -109,12 +129,17 @@ FAULT_11 = {
     # than the JAX package's and scores 0.836 against 0.323 (gate: 0.75)
     "te": {"cues": {2: "ధన్యఙాద ష"}, "score_atol": 0.012},
     "th": {"cues": {2: "ขอบคูณ"}, "texts": {"ขอบคุณ": "ขอบคูณ"}},  # on the CPU
+    # the 21k-class heads, all boxes equal: the rec's own sums move a
+    # garbage read under the drop score (japan: 彩小所对 0.3094 in JAX,
+    # 彩小所乡对 0.2587) and chinese_cht's scores by 0.0058 (on the CPU)
+    "japan": {"texts": {"彩小所对": "彩小所乡对"}, "score_atol": 0.051},
+    "chinese_cht": {"score_atol": 0.006},
 }
 # the ten non-CJK heads' class counts, with the blank
 SCRIPT_CLASSES = (83, 98, 99, 111, 139, 147, 162, 201, 293, 298)
 # the families whose keyframe path runs cold and then warm (latin serves 43
-# languages); the other seven run once
-SCRIPT_WARM = ("latin", "arabic", "korean")
+# languages; japan's is K1's row at C = 21,249); the others run once
+SCRIPT_WARM = ("latin", "arabic", "korean", "japan")
 
 
 def phase(name: str, t0: float) -> None:
@@ -240,8 +265,8 @@ def kernel_parity():
     from vse_tpu_torch.kernels import ctc_decode as k1
     from vse_tpu_torch.kernels import keyframe as k2
     from vse_tpu_torch.video.synth import (
-        SCRIPT_FAMILIES, SMOKE_FIXTURE, compose_frames, load_fixture, load_script_fixture,
-        noisy_band,
+        CJK_FAMILIES, SCRIPT_FAMILIES, SMOKE_FIXTURE, compose_frames, load_fixture,
+        load_script_fixture, noisy_band,
     )
 
     rows = {}
@@ -337,9 +362,9 @@ def kernel_parity():
 
     band = fixture_band("recipe.json")
     band_ch = fixture_band("recipe_ch.json")
-    # each non-CJK family's band, one per area width that en and ch lack
+    # each family's band, one per area width that en and ch lack
     script_bands = {}
-    for family in SCRIPT_FAMILIES:
+    for family in SCRIPT_FAMILIES + CJK_FAMILIES:
         bands, recipe = load_script_fixture(family)
         y0, y1, x0, x1 = recipe["area"]
         if x1 - x0 not in (1280, 400) and x1 - x0 not in script_bands:
@@ -475,7 +500,9 @@ def main_path(card: str):
 
     from vse_tpu_torch.core.config import VseConfig
     from vse_tpu_torch.pipeline.ocr_engine import OcrEngine
-    from vse_tpu_torch.video.synth import SMOKE_FIXTURE, compose_clip, load_fixture, recipe_area
+    from vse_tpu_torch.video.synth import (
+        CJK_FAMILIES, SCRIPT_FAMILIES, SMOKE_FIXTURE, compose_clip, load_fixture, recipe_area,
+    )
 
     def reference(name):
         with open(os.path.join(SMOKE_FIXTURE, name), encoding="utf-8") as f:
@@ -529,26 +556,32 @@ def main_path(card: str):
         del engine, rec
         gc.collect()
         torch.cuda.empty_cache()
-        script_paths(card, tmp, by_path)
+        frames = script_paths(card, tmp, by_path, SCRIPT_FAMILIES, "phase 7")
+        frames = script_paths(card, tmp, by_path, CJK_FAMILIES, "phase 8", frames)
+        del frames
+        many_paths(card, tmp, by_path)
     launches = {k: sum(p[k] for p in by_path.values()) for k in ("K1", "K2")}
     return launches, by_path
 
 
-def script_paths(card, tmp, by_path):
-    """Phase 7: the keyframe strategy for each of the ten non-CJK families,
-    each with its own engine, freed (with its CUDA-graph pools) before the
-    next. Every keyframe sample's OCR lines must equal the JAX extractor's
+def script_paths(card, tmp, by_path, families, name, frames=None):
+    """Phases 7 and 8: the keyframe strategy for each of ``families``, each
+    with its own engine, freed (with its CUDA-graph pools) before the next.
+    Every keyframe sample's OCR lines must equal the JAX extractor's
     records, and the SRT the JAX CLI's, but for ``FAULT_11``; every family
-    runs before a failure is raised."""
+    runs before a failure is raised. A 21k-class head's logits must take
+    K1's two-launch path, and the graph pools are printed after it.
+    ``frames``: a 1.4 GB frame buffer to reuse for every clip; returns it."""
     import torch
 
+    from vse_tpu_torch.kernels import ctc_decode as k1
     from vse_tpu_torch.pipeline.ocr_engine import OcrEngine
     from vse_tpu_torch.video.synth import (
-        SCRIPT_FAMILIES, compose_clip, load_script_fixture, load_script_reference, recipe_area,
+        compose_clip, load_script_fixture, load_script_reference, recipe_area,
     )
 
-    failures, frames = [], None  # one 1.4 GB frame buffer for every family's clip
-    for family in SCRIPT_FAMILIES:
+    failures = []
+    for family in families:
         t0 = time.perf_counter()
         bands, recipe = load_script_fixture(family)
         ref = load_script_reference(family)
@@ -606,13 +639,118 @@ def script_paths(card, tmp, by_path):
         print(f"{label}: engine load {load_s:.2f} s; {len(seen)} OCR lines, {moved} boxes moved "
               f"(by at most 2 px), score max difference {worst!r} where the box is equal; "
               f"texts {sorted({r[2] for r in seen})}", flush=True)
+        C = engine.charset.vocab_size + 1
+        if C > 20000:
+            if k1.decode_plan(80, C)[0]:
+                failures.append(f"{label}: K1 took its fused path at C = {C}")
+            aligned = "aligned" if C % 4 == 0 else "not aligned"
+            print(f"{label}: K1's two-launch path at [64, 80, {C}] (rows {aligned} to 16 "
+                  f"bytes); CUDA-graph pools hold {graph_pools_mib():.1f} MiB", flush=True)
         by_path[family] = kf
         del engine, ex
         gc.collect()
         torch.cuda.empty_cache()
         phase(label, t0)
     if failures:
-        raise AssertionError("phase 7:\n" + "\n".join(failures))
+        raise AssertionError(f"{name}:\n" + "\n".join(failures))
+    return frames
+
+
+def many_paths(card, tmp, by_path):
+    """Phase 9: ``extract_many`` on two clips a strategy, then a queue of two
+    tasks through ``ExtractionService`` (thread isolation), all on the en
+    head with the default config."""
+    import torch
+
+    from vse_tpu_torch.core.config import VseConfig
+    from vse_tpu_torch.kernels import ctc_decode as k1
+    from vse_tpu_torch.kernels import keyframe as k2
+    from vse_tpu_torch.pipeline.multistream import extract_many
+    from vse_tpu_torch.pipeline.ocr_engine import OcrEngine
+    from vse_tpu_torch.pipeline.service import ExtractionService, TaskStatus
+    from vse_tpu_torch.video.synth import (
+        SMOKE_FIXTURE, compose_clip, load_fixture, recipe_area,
+    )
+
+    with open(os.path.join(SMOKE_FIXTURE, "reference_many.json"), encoding="utf-8") as f:
+        refs = json.load(f)
+    cfg = VseConfig(language="en")
+    engine = OcrEngine(language="en", config=cfg, device="cuda")
+    bufs = [None, None]
+
+    def clips(names):
+        out = []
+        for i, name in enumerate(names):
+            bands, recipe = load_fixture(recipe=name)
+            clip = compose_clip(bands, recipe, os.path.join(tmp, f"many{i}.avi"), out=bufs[i])
+            bufs[i] = clip.frames
+            out.append((name, clip, recipe))
+        return out
+
+    def counted(key, fn):
+        k1.launches = k2.launches = 0
+        out = fn()
+        by_path[key] = {"K1": k1.launches, "K2": k2.launches}
+        return out
+
+    failures = []
+    keyframe_area = recipe_area(load_fixture(recipe="recipe.json")[1])
+    for key, names, area in (
+            ("many_keyframe", ("recipe.json", "recipe_fps_short.json"), keyframe_area),
+            ("many_fps", ("recipe_fps.json", "recipe_fps_short.json"), None)):
+        t0 = time.perf_counter()
+        batch = clips(names)
+        stats = {}
+        outs = [os.path.join(tmp, f"{key}_{i}.srt") for i in range(len(batch))]
+        counted(key, lambda: extract_many([c for _, c, _ in batch], [area] * len(batch), cfg,
+                                          engine=engine, output_paths=outs, device="cuda",
+                                          stats=stats))
+        launches = by_path[key]
+        for (name, _, _), path in zip(batch, outs):
+            with open(path, encoding="utf-8") as f:
+                got = f.read()
+            want = refs["keyframe" if area else "fps"][name]
+            if got != want:
+                failures.append(f"{key} {name}: SRT differs from the JAX extract_many's:\n"
+                                f"--- got\n{got}\n--- want\n{want}")
+        samples = sum(stats["samples"])
+        want_chunks = math.ceil(samples / cfg.frame_batch)
+        want_k2 = sum(math.ceil(len(c.frames) / 32) for _, c, _ in batch) if area else 0
+        print(f"{key} on {card}: {len(batch)} videos, samples {stats['samples']}, "
+              f"{stats['chunks']} pooled OCR chunks (ceil({samples} / {cfg.frame_batch}) = "
+              f"{want_chunks}), launches {launches}; SRTs equal the JAX extract_many's: "
+              f"{not failures}", flush=True)
+        if stats["chunks"] != want_chunks or launches["K1"] != want_chunks \
+                or launches["K2"] != want_k2:
+            failures.append(f"{key}: launches {launches} for {stats['chunks']} chunks, want K1 "
+                            f"{want_chunks}, K2 {want_k2}")
+        phase(f"extract_many, {key[5:]} strategy", t0)
+
+    t0 = time.perf_counter()
+    (_, kf_clip, kf_recipe), (_, short_clip, _) = clips(("recipe.json", "recipe_fps_short.json"))
+    svc = ExtractionService(config=cfg, device="cuda")
+    tasks = [svc.add_task(kf_clip, recipe_area(kf_recipe), os.path.join(tmp, "svc0.srt")),
+             svc.add_task(short_clip, None, os.path.join(tmp, "svc1.srt"))]
+    counted("service", lambda: svc.run_all(block=True))
+    for task, ref in zip(tasks, ("reference_keyframe.srt", "reference_fps_short.srt")):
+        if task.status != TaskStatus.COMPLETED:
+            failures.append(f"service task {ref}: {task.status}: {task.error}")
+            continue
+        with open(task.srt_path, encoding="utf-8") as f, \
+                open(os.path.join(SMOKE_FIXTURE, ref), encoding="utf-8") as g:
+            if f.read() != g.read():
+                failures.append(f"service task: SRT differs from {ref}")
+    launches = by_path["service"]
+    print(f"service queue on {card}: {[t.status.value for t in tasks]}, launches {launches}",
+          flush=True)
+    if launches["K2"] != math.ceil(len(kf_clip.frames) / 32) or launches["K1"] < 2:
+        failures.append(f"service: launches {launches}")
+    phase("extraction service, thread isolation", t0)
+    del engine, svc, bufs
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("phase 9:\n" + "\n".join(failures))
 
 
 def fps_path(label, clip, reference, raw_ref, engine, card):
@@ -705,7 +843,7 @@ def main() -> int:
     phase("kernel parity", t0)
 
     launches, by_path = main_path(card)
-    from vse_tpu_torch.video.synth import SCRIPT_FAMILIES, load_script_fixture
+    from vse_tpu_torch.video.synth import CJK_FAMILIES, SCRIPT_FAMILIES, load_script_fixture
 
     meta = {
         "K1": ("ctc_greedy_decode", "vse_tpu_torch/csrc/ctc_decode.cu",
@@ -714,12 +852,14 @@ def main() -> int:
                "vse_tpu/kernels/keyframe.py:117"),
     }
     # the paths whose launches run at each timed row's shape: en's C = 69
-    # and 1280-wide band, ch's C = 21,060 and 400-wide band; no path reads
-    # japan's C = 21,249
-    en_paths, ch_paths = ("keyframe", "fps", "fps_short"), ("ch_keyframe", "ch_fps_short")
-    row_paths = {"K1": en_paths, "K1_c293": ("latin",), "K1_c21060": ch_paths,
-                 "K1_c21249": (), "K2": en_paths, "K2_ch_area": ch_paths}
-    areas = {f: load_script_fixture(f)[1]["area"] for f in SCRIPT_FAMILIES}
+    # and 1280-wide band (phases 4-5 and 9), ch's and chinese_cht's C =
+    # 21,060, japan's 21,249, ch's 400-wide band
+    en_paths = ("keyframe", "fps", "fps_short", "many_keyframe", "many_fps", "service")
+    ch_paths = ("ch_keyframe", "ch_fps_short")
+    row_paths = {"K1": en_paths, "K1_c293": ("latin",),
+                 "K1_c21060": ch_paths + ("chinese_cht",), "K1_c21249": ("japan",),
+                 "K2": ("keyframe", "many_keyframe", "service"), "K2_ch_area": ch_paths}
+    areas = {f: load_script_fixture(f)[1]["area"] for f in SCRIPT_FAMILIES + CJK_FAMILIES}
     for key in rows:
         if key.startswith("K2_w"):  # the families whose area is this wide
             row_paths[key] = tuple(f for f, a in areas.items() if a[3] - a[2] == int(key[4:]))

@@ -60,6 +60,13 @@ FAULT_11 = {
     "te": {"cues": {2: "ధన్యఙాద ష"}, "score_atol": 0.012},
     # th's second cue on the CPU: its box 1-2 px off, ุ read as ู
     "th": {"cues": {2: "ขอบคูณ"}, "texts": {"ขอบคุณ": "ขอบคูณ"}},
+    # the 21k-class heads, whose boxes are all equal: the rec's own sums
+    # (its convolutions, LSTM and projection) in another order than XLA's
+    # move a marginal step of a garbage read. japan's second cue, under the
+    # drop score on both sides: 彩小所对 0.3094 (JAX), 彩小所乡对 0.2587;
+    # chinese_cht's second cue 0.7116 against 0.7058, the rest within 0.005
+    "japan": {"texts": {"彩小所对": "彩小所乡对"}, "score_atol": 0.051},
+    "chinese_cht": {"score_atol": 0.006},
 }
 
 
@@ -90,13 +97,14 @@ def line_mismatches(got, want, family):
     return bad
 
 
-def script_family_keyframe(family, tmp_path):
-    """A non-CJK family's keyframe clip (``recipe_scripts.json``) through
+def script_family_keyframe(family, tmp_path, n_cues=None, **config):
+    """A family's keyframe clip (``recipe_scripts.json``) through
     ``SubtitleExtractor(..., device="cpu")`` with the default config for its
-    language: the SRT must equal the JAX CLI's byte for byte, and every OCR
-    line of every keyframe sample the JAX extractor's record (frame and
-    text exact, a box within 2 px, a score within ``SCORE_ATOL``), but for
-    what ``FAULT_11`` lists. Returns the extractor."""
+    language (and ``config``'s fields): the SRT must equal the JAX CLI's
+    byte for byte, and every OCR line of every keyframe sample the JAX
+    extractor's record (frame and text exact, a box within 2 px, a score
+    within ``SCORE_ATOL``), but for what ``FAULT_11`` lists. The JAX SRT
+    must hold ``n_cues`` cues (three, two for ta). Returns the extractor."""
     from vse_tpu_torch.pipeline.extractor import SubtitleExtractor
     from vse_tpu_torch.video.synth import (
         compose_clip, load_script_fixture, load_script_reference, recipe_area,
@@ -105,8 +113,8 @@ def script_family_keyframe(family, tmp_path):
     bands, recipe = load_script_fixture(family)
     ref = load_script_reference(family)
     clip = compose_clip(bands, recipe, str(tmp_path / f"{family}.avi"))
-    ex = SubtitleExtractor(clip, recipe_area(recipe), VseConfig(language=ref["language"]),
-                           device="cpu")
+    ex = SubtitleExtractor(clip, recipe_area(recipe),
+                           VseConfig(language=ref["language"], **config), device="cpu")
     assert ex.engine.family == family
     lines = []
     refine = ex.refine_keyframe_spans
@@ -122,7 +130,9 @@ def script_family_keyframe(family, tmp_path):
     assert srt_matches(got, ref["srt"], family), f"{got}\n--- want\n{ref['srt']}"
     # the JAX scan misses ta's shortest cue (ROADMAP fault 8): its SRT holds
     # two cues, and the port's must equal it
-    assert ref["srt"].count("-->") == (2 if family == "ta" else 3)
+    if n_cues is None:
+        n_cues = 2 if family == "ta" else 3
+    assert ref["srt"].count("-->") == n_cues
     assert not line_mismatches(lines, ref["lines"], family)
     return ex
 

@@ -53,10 +53,12 @@ def test_ch_charset_and_families_match_jax():
     assert len(LANGUAGES) >= 87
     for lang in LANGUAGES:
         assert charset.script_family(lang) == jax_charset.script_family(lang), lang
-    # a family that is not ported yet raises and names the family
-    for lang, family in (("japan", "japan"), ("chinese_cht", "chinese_cht")):
-        with pytest.raises(NotImplementedError, match=repr(family)):
-            charset.get_charset(lang)
+    # japan and chinese_cht are ported; a code of no family raises and
+    # names it
+    for lang in ("japan", "chinese_cht"):
+        assert charset.get_charset(lang).chars == jax_charset.get_charset(lang).chars
+    with pytest.raises(NotImplementedError, match=repr("xx")):
+        charset.get_charset("xx")
 
 
 def test_charset_from_file_keeps_a_space_line(tmp_path):

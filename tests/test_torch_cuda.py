@@ -321,3 +321,72 @@ def test_graphed_forward_equals_eager_on_the_card(cuda, which):
                 x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
                 assert torch.equal(fwd(x), model(x))
     assert len(fwd.graphs) == 2
+
+
+def tiny_clip(cue, n=60):
+    """A 2.4 s in-memory clip, 1280 x 240, one en cue in its band."""
+    from vse_tpu_torch.video.decode import InMemoryVideo
+    from vse_tpu_torch.video.synth import compose_frames, load_fixture
+
+    bands, _ = load_fixture()
+    recipe = {"width": 1280, "height": 240, "fps": 25, "n_frames": n,
+              "background": [30, 40, 60], "band_origin": [120, 0],
+              "cues": [{"band": cue, "first": 5, "last": n - 5}]}
+    return InMemoryVideo(compose_frames(bands, recipe), 25.0, f"{cue}.avi")
+
+
+def test_pooled_chunk_k1_matches_plain_decode(cuda, tmp_path, monkeypatch):
+    """``extract_many``'s keyframe pass pools two videos' samples into
+    shared chunks: every chunk's logits go through one K1 launch, whose ids,
+    masks and scores equal the plain decode of the same logits."""
+    from vse_tpu_torch.core.config import VseConfig
+    from vse_tpu_torch.core.subtitle_area import SubtitleArea
+    from vse_tpu_torch.pipeline import ocr_engine
+    from vse_tpu_torch.pipeline.multistream import extract_many
+
+    seen = []
+    decode = ocr_engine.ctc_greedy_decode
+
+    def keep(logits):
+        out = decode(logits)
+        seen.append((logits.clone(), [o.clone() for o in out]))
+        return out
+    monkeypatch.setattr(ocr_engine, "ctc_greedy_decode", keep)
+    clips = [tiny_clip("band0"), tiny_clip("band2")]
+    stats = {}
+    before = k1.launches
+    extract_many(clips, [SubtitleArea(120, 224, 0, 1280)] * 2, VseConfig(language="en"),
+                 output_paths=[str(tmp_path / "a.srt"), str(tmp_path / "b.srt")],
+                 device="cuda", stats=stats)
+    assert len(seen) == stats["chunks"] == k1.launches - before
+    assert stats["chunks"] == -(-sum(stats["samples"]) // 8) and min(stats["samples"]) > 0
+    for logits, (ids, mask, scores) in seen:
+        assert logits.is_cuda and logits.shape[0] == 64
+        ids_p, mask_p, scores_p = k1.collapse(*k1.argmax_lse_plain(logits))
+        assert torch.equal(ids, ids_p) and torch.equal(mask, mask_p)
+        torch.testing.assert_close(scores, scores_p, rtol=1e-5, atol=1e-6)
+
+
+def test_service_queue_on_the_card_equals_single_runs(cuda, tmp_path):
+    """Two tiny tasks through ``ExtractionService`` (thread isolation) on
+    the card: each SRT equals the one ``SubtitleExtractor.run()`` writes for
+    that video with the service's engine."""
+    from vse_tpu_torch.core.config import VseConfig
+    from vse_tpu_torch.core.subtitle_area import SubtitleArea
+    from vse_tpu_torch.pipeline.extractor import SubtitleExtractor
+    from vse_tpu_torch.pipeline.service import ExtractionService, TaskStatus
+
+    cfg = VseConfig(language="en")
+    area = SubtitleArea(120, 224, 0, 1280)
+    clips = [tiny_clip("band0"), tiny_clip("band1")]
+    svc = ExtractionService(config=cfg, device="cuda")
+    tasks = [svc.add_task(c, area, str(tmp_path / f"svc{i}.srt")) for i, c in enumerate(clips)]
+    svc.run_all(block=True)
+    assert all(t.status == TaskStatus.COMPLETED for t in tasks), [t.error for t in tasks]
+    for i, (t, c) in enumerate(zip(tasks, clips)):
+        ex = SubtitleExtractor(c, area, cfg, engine=svc._engine, device="cuda")
+        ex.subtitle_output_path = str(tmp_path / f"one{i}.srt")
+        ex.append_output = lambda *a: None
+        with open(ex.run(), encoding="utf-8") as f, open(t.srt_path, encoding="utf-8") as g:
+            want = f.read()
+            assert g.read() == want and want.count("-->") == 1

@@ -109,13 +109,15 @@ def test_ocr_engine_reads_what_the_jax_engine_reads(clip, jax_run, engine):
 
 
 def test_port_imports_no_jax():
-    """In a fresh interpreter with JAX_PLATFORMS unset, the main path imports
-    none of jax, flax, optax, orbax or vse_tpu."""
+    """In a fresh interpreter with JAX_PLATFORMS unset, the main path and
+    the batch surface import none of jax, flax, optax, orbax or vse_tpu."""
     env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
     code = (
         "import sys\n"
         "import vse_tpu_torch.cli, vse_tpu_torch.pipeline.extractor\n"
         "import vse_tpu_torch.video.synth, vse_tpu_torch.weights\n"
+        "import vse_tpu_torch.pipeline.multistream, vse_tpu_torch.pipeline.service\n"
+        "import vse_tpu_torch.pipeline.isolation, vse_tpu_torch.core.i18n\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vse_tpu'))\n"
         "print(bad)\n"

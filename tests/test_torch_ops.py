@@ -254,8 +254,8 @@ def test_en_charset_and_config_match_jax():
         assert got.chars == want.chars
         assert got.decode_ids(range(100)) == want.decode_ids(range(100))
     assert en.folded().without_space().vocab_size == 68
-    with pytest.raises(NotImplementedError):  # a family not ported yet
-        charset.get_charset("japan")
+    with pytest.raises(NotImplementedError):  # a code of no family
+        charset.get_charset("xx")
     ours = VseConfig()
     for f in dataclasses.fields(VseConfig):  # every field the port keeps
         assert getattr(ours, f.name) == getattr(JaxConfig(), f.name), f.name

@@ -86,12 +86,31 @@ keyframe fixture instead, each family a key of three shared files:
                           sample, [frame_no, [xmin, xmax, ymin, ymax],
                           text, score], in sample order
 
+With ``--language japan`` or ``--language chinese_cht``, the last two CJK
+families' keyframe fixtures, as keys of the same three files: three cues
+each (``CJK_CUES``: kana and kanji for japan, traditional characters for
+chinese_cht), drawn as ch's are with the stroke composer (kana from
+``vse_tpu/core/kana.py``) at 4x and downsampled, the area narrowed to the
+cues' ink plus 40 px.
+
+With ``--many``, the JAX package's ``extract_many`` references
+(``vse_tpu.pipeline.multistream.extract_many``, default config, en, mode
+fast) on clips written losslessly as for the CLI:
+
+  reference_many.json     ``{"keyframe": {recipe: srt}, "fps": {recipe:
+                          srt}}``: the keyframe strategy on
+                          ``recipe.json`` and ``recipe_fps_short.json``,
+                          both given ``recipe.json``'s area (the short
+                          clip's watermark and sign lie outside its upload
+                          band), and the fps strategy on ``recipe_fps.json``
+                          and ``recipe_fps_short.json`` with no area
+
 Band files that exist are reused as committed (they are rendered only when
 they are missing; a family whose bands are missing from
 ``bands_scripts.npz`` is drawn and added). Run it with JAX on the CPU (it needs PIL, OpenCV and the
 en and ch rec heads):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py [--language ch|<family>]
+    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py [--language ch|<family>] [--many]
 """
 
 from __future__ import annotations
@@ -157,6 +176,16 @@ SCRIPT_CUES = {
     "te": ("te", ["నమస్కారం", "ధన్యవాదాలు", "మళ్ళీ కలుద్దాం"]),
     "ka": ("ka", ["გამარჯობა", "მადლობა", "ნახვამდის"]),
     "th": ("th", ["สวัสดี", "ขอบคุณ", "ลาก่อน"]),
+}
+# the last two CJK families: (language code, three cues), drawn as the
+# stroke families are. japan's first cues (こんにちは世界, ありがとう, また明日ね)
+# all scored under the drop score (0.31-0.39) in the JAX engine, which left
+# its SRT empty; these were chosen, before the port read any, so that two
+# cues clear it, with widths close enough (180-220 px) that the narrowed
+# area keeps the shortest over the scan's 2% vote
+CJK_CUES = {
+    "japan": ("japan", ["学生です", "ありがとう", "さようなら"]),
+    "chinese_cht": ("chinese_cht", ["今天天氣很好", "我們明天見", "你好世界"]),
 }
 SCRIPT_CELL = 44  # stroke fonts' cell height, as ch's
 HANGUL_SIZE = 40
@@ -296,7 +325,7 @@ def jax_keyframe_reference(frames: np.ndarray, area: list, language: str):
 def main_script(family: str) -> None:
     from vse_tpu_torch.video.synth import compose_frames
 
-    language, texts = SCRIPT_CUES[family]
+    language, texts = {**SCRIPT_CUES, **CJK_CUES}[family]
     path = os.path.join(OUT, "bands_scripts.npz")
     all_bands = {}
     if os.path.exists(path):
@@ -455,15 +484,65 @@ def main_ch() -> None:
     jax_fps_records(frames_short, "reference_ch_fps_short_raw.json", "ch")
 
 
+def jax_extract_many(clips: dict, area) -> dict:
+    """{recipe name: SRT} of the JAX package's ``extract_many`` over the
+    clips, each written losslessly, with the default config for en (mode
+    fast), every clip given ``area`` (or none)."""
+    from vse_tpu.core.config import VseConfig
+    from vse_tpu.core.subtitle_area import SubtitleArea
+    from vse_tpu.pipeline.multistream import extract_many
+
+    names = sorted(clips)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, name in enumerate(names):
+            paths.append(os.path.join(tmp, f"clip{i}.avi"))
+            write_lossless(clips[name], paths[-1])
+        areas = [SubtitleArea(*area) if area else None for _ in names]
+        out = extract_many(paths, sub_areas=areas, config=VseConfig(language="en"))
+        srts = {}
+        for name, path in zip(names, paths):
+            with open(out[path], encoding="utf-8") as f:
+                srts[name] = f.read()
+            print(f"--- extract_many {name}, area {area}\n{srts[name]}")
+    return srts
+
+
+def main_many() -> None:
+    from vse_tpu_torch.video.synth import compose_frames, load_fixture
+
+    def clip(name):
+        bands, recipe = load_fixture(recipe=name)
+        return compose_frames(bands, recipe), recipe
+
+    kf, recipe = clip("recipe.json")
+    short, _ = clip("recipe_fps_short.json")
+    refs = {"keyframe": jax_extract_many({"recipe.json": kf, "recipe_fps_short.json": short},
+                                         recipe["area"])}
+    del kf
+    fps, _ = clip("recipe_fps.json")
+    refs["fps"] = jax_extract_many({"recipe_fps.json": fps, "recipe_fps_short.json": short},
+                                   None)
+    with open(os.path.join(OUT, "reference_many.json"), "w", encoding="utf-8") as f:
+        json.dump(refs, f, indent=1, ensure_ascii=False)
+        f.write("\n")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--language", default="en", choices=["en", "ch", *SCRIPT_CUES])
+    ap.add_argument("--language", default="en",
+                    choices=["en", "ch", *SCRIPT_CUES, *CJK_CUES])
+    ap.add_argument("--many", action="store_true",
+                    help="write the JAX extract_many references instead")
     args = ap.parse_args()
     os.makedirs(OUT, exist_ok=True)
+    if args.many:
+        main_many()
+        return
     if args.language == "ch":
         main_ch()
         return
-    if args.language in SCRIPT_CUES:
+    if args.language in SCRIPT_CUES or args.language in CJK_CUES:
         main_script(args.language)
         return
     from vse_tpu_torch.video.synth import compose_frames, noisy_band

@@ -2,7 +2,7 @@
 """Profile one warm run of one of the port's paths on one CUDA card.
 
     python3 tools/profile_torch_main_path.py [--path keyframe|fps] \\
-        [--language en|ch] [--out TRACE.json]
+        [--language en|ch|japan|chinese_cht] [--out TRACE.json]
 
 Drives ``SubtitleExtractor.run()`` with the default config (mode fast,
 word segmentation on) for ``--language`` (default en) on a smoke clip of
@@ -10,7 +10,8 @@ word segmentation on) for ``--language`` (default en) on a smoke clip of
 memory): ``keyframe`` (default) the clip with a subtitle area (``extract
 --area``: ``recipe.json``, for ch ``recipe_ch.json``), ``fps`` a no-area
 clip (``extract`` with no area: ``recipe_fps.json``, for ch
-``recipe_ch_fps_short.json``).
+``recipe_ch_fps_short.json``). japan and chinese_cht have a keyframe clip
+only (their key of ``recipe_scripts.json``).
 Two runs: a cold run, then a warm run under ``torch.profiler`` with CPU and
 CUDA activities. Prints the card's name and
 power limit, the warm run's pass seconds, the 15 device ops (kernels and
@@ -55,7 +56,8 @@ def busy_us(intervals) -> float:
 
 # the smoke clips of each language: (keyframe, fps)
 RECIPES = {"en": ("recipe.json", "recipe_fps.json"),
-           "ch": ("recipe_ch.json", "recipe_ch_fps_short.json")}
+           "ch": ("recipe_ch.json", "recipe_ch_fps_short.json"),
+           "japan": ("japan", None), "chinese_cht": ("chinese_cht", None)}
 
 
 def main() -> int:
@@ -78,14 +80,24 @@ def main() -> int:
     from vse_tpu_torch.core.config import VseConfig
     from vse_tpu_torch.pipeline.extractor import SubtitleExtractor
     from vse_tpu_torch.pipeline.ocr_engine import OcrEngine
-    from vse_tpu_torch.video.synth import compose_clip, load_fixture, recipe_area
+    from vse_tpu_torch.video.synth import (
+        compose_clip, load_fixture, load_script_fixture, recipe_area,
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    bands, recipe = load_fixture(recipe=RECIPES[args.language][args.path == "fps"])
+    name = RECIPES[args.language][args.path == "fps"]
+    if name is None:
+        print(f"profile_torch_main_path.py: {args.language} has no {args.path} clip",
+              file=sys.stderr)
+        return 2
+    if name.endswith(".json"):
+        bands, recipe = load_fixture(recipe=name)
+    else:
+        bands, recipe = load_script_fixture(name)
     cfg = VseConfig(language=args.language)
     engine = OcrEngine(language=args.language, config=cfg, device="cuda")
     with tempfile.TemporaryDirectory() as tmp:

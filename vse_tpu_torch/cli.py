@@ -2,23 +2,24 @@
 
     python -m vse_tpu_torch.cli extract VIDEO [VIDEO ...] \\
         [--area ymin,ymax,xmin,xmax] [--language ch] [--mode fast] \\
-        [--output DIR] [--txt] [--no-word-segmentation] \\
-        [--interactive-filters] [--device cuda]
+        [--config config.json] [--output DIR] [--txt] \\
+        [--no-word-segmentation] [--interactive-filters] [--device cuda]
 
 Writes each video's SRT next to it (or into ``--output``); one OCR engine
 serves all the videos. With no ``--area`` it runs the fps strategy with the
 watermark and scene-text filters; with one, the keyframe strategy. Runs on
 the card unless ``--device cpu`` is given. With no ``--language`` the
 config's language runs (``VseConfig.language``, ``ch``), as in the JAX
-package. This slice ports mode fast for ``ch`` and ``en``; decoding a file
-needs OpenCV. A missing video makes the exit code 1.
+package. ``--config`` reads a reference-format ``config.json`` (``{"Main":
+{...}}``, ``VseConfig.from_json``); the flags given override it. Mode fast
+is ported, for every language; decoding a file needs OpenCV. A missing
+video makes the exit code 1.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from dataclasses import replace
 import sys
 from pathlib import Path
 from typing import List, Optional
@@ -47,10 +48,18 @@ def cmd_extract(args) -> int:
     from vse_tpu_torch.pipeline.extractor import SubtitleExtractor
     from vse_tpu_torch.video.decode import probe
 
-    cfg = VseConfig(mode=Mode(args.mode), generate_txt=args.txt,
-                    word_segmentation=not args.no_word_segmentation)
+    cfg = VseConfig.from_json(args.config) if args.config else VseConfig()
+    overrides = {}
     if args.language:
-        cfg = replace(cfg, language=args.language)
+        overrides["language"] = args.language
+    if args.mode:
+        overrides["mode"] = Mode(args.mode)
+    if args.txt:
+        overrides["generate_txt"] = True
+    if args.no_word_segmentation:
+        overrides["word_segmentation"] = False
+    if overrides:
+        cfg = cfg.replace(**overrides)
     confirm = ask if args.interactive_filters else None
     rc = 0
     engine = None
@@ -89,7 +98,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "one, the fps strategy and its filters run")
     p.add_argument("--language", default=None,
                    help="subtitle language (default: the config's, ch)")
-    p.add_argument("--mode", default="fast", choices=["fast"])
+    p.add_argument("--mode", default=None, choices=["fast"],
+                   help="recognition mode (default: the config's, fast)")
+    p.add_argument("--config", default=None,
+                   help="path to a config.json in the reference's format")
     p.add_argument("--output", default=None, help="output directory (default: the video's)")
     p.add_argument("--txt", action="store_true", help="also write a .txt transcript")
     p.add_argument("--no-word-segmentation", action="store_true")

@@ -5,11 +5,10 @@ A language maps onto a script family (``script_family``), and the family
 names the rec head and its character set. ``en`` is built in; the dict
 families read a one-character-per-line file (the PaddleOCR format) from the
 port's own copy under ``vse_tpu_torch/assets/dicts/<family>.txt``. Every
-family of the JAX package's registry is ported but japan and chinese_cht,
-which raise until their heads and dict files are ported (the JAX package
-would fall back to the en charset for a family with no dict file; no
-language of its ``LANGUAGES`` reaches that fallback, and the port raises
-instead).
+family of the JAX package's registry is ported, so every code of its
+``LANGUAGES`` runs (the JAX package would fall back to the en charset for a
+family with no dict file; no language of ``LANGUAGES`` reaches that
+fallback, and the port raises instead).
 
 CTC convention: index 0 is the blank; characters are 1..N. A trailing space
 character is appended when ``use_space_char`` (PaddleOCR-compatible). A rec
@@ -57,7 +56,7 @@ DICT_DIR = os.path.join(
 # families whose head, dict file and decode passes are ported
 PORTED_DICT_FAMILIES = (
     "ch", "latin", "cyrillic", "devanagari", "arabic", "korean", "el", "ta",
-    "te", "ka", "th",
+    "te", "ka", "th", "japan", "chinese_cht",
 )
 # every ported family: en's charset is built in
 PORTED_FAMILIES = ("en",) + PORTED_DICT_FAMILIES

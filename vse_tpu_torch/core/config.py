@@ -1,12 +1,18 @@
 """Typed configuration for the extraction pipeline: the fields of the JAX
-package's ``VseConfig`` that the port's main path reads, with the same names,
-defaults and value checks (reference backend/config.py:50-98 for the
-reference-derived knobs). Later slices add fields as they port what reads
-them.
+package's ``VseConfig`` that the port reads, with the same names, defaults
+and value checks (reference backend/config.py:50-98 for the
+reference-derived knobs), and the reference's ``config.json`` interop
+(``from_json``, ``to_json``): every key of the reference's ``"Main"``
+section maps onto a field, so a user's config carries over. Fields that
+only the JAX package's later modes and devices read (its TPU knobs) are not
+kept.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from dataclasses import dataclass
 from enum import Enum
 
@@ -25,9 +31,18 @@ class Mode(str, Enum):
     ACCURATE = "accurate"
 
 
+class Decoder(str, Enum):
+    """Video decode backend for the keyframe scanner (reference
+    backend/tools/constant.py VideoSubFinderDecoder). The port decodes with
+    OpenCV; the ffmpeg decoder is not ported."""
+
+    OPENCV = "opencv"
+    FFMPEG = "ffmpeg"
+
+
 @dataclass(frozen=True)
 class VseConfig:
-    """Pipeline knobs the main path reads."""
+    """Pipeline knobs."""
 
     # Subtitle language (reference backend/config.py:52)
     language: str = "ch"
@@ -35,6 +50,8 @@ class VseConfig:
     mode: Mode = Mode.FAST
     # Emit a .txt transcript next to the .srt (reference backend/config.py:56)
     generate_txt: bool = False
+    # Text boxes recognized per rec batch (reference backend/config.py:58)
+    rec_batch_number: int = 6
     # Frames per det batch (reference backend/config.py:60)
     max_batch_size: int = 10
     # Frames sampled per second of video in fps mode, and inside keyframe
@@ -56,11 +73,29 @@ class VseConfig:
     # Allowed box overflow outside the subtitle area, fraction
     # (reference backend/config.py:80)
     subtitle_area_deviation_rate: float = 0.0
+    # Debug switches (reference backend/config.py:82-85): dump a frame whose
+    # CJK-family read lost every CJK character under ``loss/`` beside the
+    # video, and keep the raw OCR records as ``raw.txt`` beside the SRT
+    debug_ocr_loss: bool = False
+    debug_no_delete_cache: bool = False
     # Keep/drop keyframe-timeline cues with no recognized text
     # (reference backend/config.py:87)
     delete_empty_timestamp: bool = True
     # Re-segment words / punctuation fixes (reference backend/config.py:89)
     word_segmentation: bool = True
+    # Use the accelerator (reference backend/config.py:91); the port's
+    # entry points take their device as an argument instead
+    hardware_acceleration: bool = True
+    # Output directory override; empty = next to the video
+    # (reference backend/config.py:95)
+    save_directory: str = ""
+    # Keyframe scanner worker threads; 0 = auto (reference backend/config.py:96)
+    scanner_cpu_cores: int = 0
+    # Video decode backend for the keyframe scanner (reference backend/config.py:98)
+    scanner_decoder: Decoder = Decoder.OPENCV
+    # Default subtitle selection area as ratios "ymin,ymax,xmin,xmax"
+    # (reference backend/config.py:49)
+    subtitle_selection_areas: str = "0.78,0.99,0.05,0.95"
 
     # --- device-pipeline knobs (no reference equivalent) ---
     # Frames per OCR batch (fps strategy and the keyframe OCR pass).
@@ -96,6 +131,11 @@ class VseConfig:
     def __post_init__(self):
         if isinstance(self.mode, str) and not isinstance(self.mode, Mode):
             object.__setattr__(self, "mode", Mode(self.mode))
+        if isinstance(self.scanner_decoder, str) and not isinstance(
+                self.scanner_decoder, Decoder):
+            object.__setattr__(self, "scanner_decoder", Decoder(self.scanner_decoder))
+        if not 1 <= self.rec_batch_number <= 100:
+            raise ValueError("rec_batch_number must be in [1, 100]")
         if not 1 <= self.max_batch_size <= 256:
             raise ValueError("max_batch_size must be in [1, 256]")
         if not 1 <= self.extract_frequency <= 60:
@@ -104,3 +144,63 @@ class VseConfig:
             raise ValueError("threshold_text_similarity must be in [0, 100]")
         if not 0 <= self.drop_score <= 100:
             raise ValueError("drop_score must be in [0, 100]")
+
+    def replace(self, **kw) -> "VseConfig":
+        return dataclasses.replace(self, **kw)
+
+    # --- reference config.json interop ------------------------------------
+    # the reference's config/config.json "Main" keys (reference
+    # backend/config.py:50-98) -> field names
+    _JSON_KEYS = {
+        "Language": "language",
+        "Mode": "mode",
+        "GenerateTxt": "generate_txt",
+        "RecBatchNumber": "rec_batch_number",
+        "MaxBatchSize": "max_batch_size",
+        "ExtractFrequency": "extract_frequency",
+        "TolerantPixelY": "tolerant_pixel_y",
+        "TolerantPixelX": "tolerant_pixel_x",
+        "SubtitleAreaDeviationPixel": "subtitle_area_deviation_pixel",
+        "WaterarkAreaNum": "watermark_area_num",  # sic: the reference's key
+        "ThresholdTextSimilarity": "threshold_text_similarity",
+        "DropScore": "drop_score",
+        "SubtitleAreaDeviationRate": "subtitle_area_deviation_rate",
+        "DebugOcrLoss": "debug_ocr_loss",
+        "DebugNoDeleteCache": "debug_no_delete_cache",
+        "DeleteEmptyTimeStamp": "delete_empty_timestamp",
+        "WordSegmentation": "word_segmentation",
+        "HardwareAcceleration": "hardware_acceleration",
+        "SaveDirectory": "save_directory",
+        "VideoSubFinderCpuCores": "scanner_cpu_cores",
+        "VideoSubFinderDecoder": "scanner_decoder",
+        "SubtitleSelectionAreas": "subtitle_selection_areas",
+    }
+
+    @classmethod
+    def from_json(cls, path_or_dict) -> "VseConfig":
+        """Load a reference-format config.json (``{"Main": {...}}``, or the
+        section itself), from a path or a parsed dict; absent keys keep
+        their defaults."""
+        if isinstance(path_or_dict, (str, os.PathLike)):
+            with open(path_or_dict, "r", encoding="utf-8") as f:
+                data = json.load(f)
+        else:
+            data = path_or_dict
+        main = data.get("Main", data)
+        kw = {}
+        for jkey, fname in cls._JSON_KEYS.items():
+            if jkey in main:
+                v = main[jkey]
+                if fname == "scanner_decoder" and isinstance(v, str):
+                    v = Decoder(v.lower().replace("videosubfinderdecoder.", ""))
+                kw[fname] = v
+        return cls(**kw)
+
+    def to_json(self) -> dict:
+        """The reference-format dict ``{"Main": {...}}`` of every mapped
+        field (enums as their values)."""
+        main = {}
+        for jkey, fname in self._JSON_KEYS.items():
+            v = getattr(self, fname)
+            main[jkey] = v.value if isinstance(v, Enum) else v
+        return {"Main": main}

@@ -19,8 +19,13 @@
 
 Then dedup and the SRT (``generate_subtitle_file``), word segmentation
 (``post/reformat.py``) when ``word_segmentation`` is on, and a ``.txt``
-transcript when ``generate_txt`` is on. Not ported in this slice: the
-accurate and auto modes, the OCR-loss debugger and the raw-record dump.
+transcript when ``generate_txt`` is on. User-facing messages go through
+``append_output`` in the catalog's locale (``core/i18n.py``). The debug
+switches: ``debug_no_delete_cache`` keeps the raw records as ``raw.txt``
+beside the SRT (``dump_raw_records``), and ``debug_ocr_loss`` writes a
+frame whose CJK-family read lost every CJK character to ``loss/`` beside
+the video (``_maybe_dump_ocr_loss``; it needs OpenCV, imported only then).
+Not ported: the accurate and auto modes and the ffmpeg decoder.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from vse_tpu_torch.core.config import Mode, VseConfig
+from vse_tpu_torch.core.config import Decoder, Mode, VseConfig
+from vse_tpu_torch.core.i18n import tr
 from vse_tpu_torch.core.subtitle_area import SubtitleArea
 from vse_tpu_torch.device import resolve_device
 from vse_tpu_torch.kernels.keyframe import ScanParams, find_spans, scan_stats_u8
@@ -48,7 +54,7 @@ from vse_tpu_torch.post.dedup import (
     generate_srt, generate_srt_from_timeline, remove_duplicate_subtitles,
 )
 from vse_tpu_torch.post.filters import always_yes, filter_scene_text, filter_watermark
-from vse_tpu_torch.post.records import RawRecord
+from vse_tpu_torch.post.records import RawRecord, write_raw
 from vse_tpu_torch.post.reformat import execute as reformat_execute
 from vse_tpu_torch.post.srt import SrtFile, SrtItem, srt_to_txt
 from vse_tpu_torch.video.decode import FrameStream, Video, probe, read_frames, video_path
@@ -125,14 +131,18 @@ class SubtitleExtractor:
         self.config = config or VseConfig()
         if self.config.mode != Mode.FAST:
             raise NotImplementedError(
-                f"mode {self.config.mode.value!r} is not ported yet; use mode 'fast'"
+                f"mode {self.config.mode.value!r} is not ported yet (it needs the "
+                f"det_server weights); use mode 'fast'"
             )
+        if self.config.scanner_decoder != Decoder.OPENCV:
+            raise NotImplementedError("the ffmpeg decoder is not ported; use 'opencv'")
         self.device = resolve_device(device)
         self.video = video
         self.meta = probe(video)
         self.fps = self.meta.fps
         self.frame_count = self.meta.frame_count
         self.frame_height = self.meta.height
+        self.frame_width = self.meta.width
         self.sub_area = sub_area
         self.confirm = confirm
         self.resume = resume
@@ -140,7 +150,7 @@ class SubtitleExtractor:
         self.raw_records: List[RawRecord] = []
         self.timeline = SrtFile()
         self._frame_to_ms: Dict[int, float] = {}
-        path = video_path(video)
+        self.video_path = path = video_path(video)
         self.subtitle_output_path = os.path.join(
             os.path.dirname(path), f"{Path(path).stem}.srt"
         )
@@ -175,6 +185,11 @@ class SubtitleExtractor:
             self.progress_ocr = ocr
         for fn in self._listeners:
             fn(self.progress_frame_extract, self.progress_ocr)
+
+    def append_output(self, *args) -> None:
+        """Log hook; a service or GUI replaces this attribute (reference
+        main.py:1045-1050)."""
+        print(*args)
 
     def _check_cancel(self) -> None:
         if self.cancel.is_set():
@@ -217,12 +232,78 @@ class SubtitleExtractor:
             kept.append(((int(xmin), int(xmax), int(ymin), int(ymax)), text, prob))
         return kept
 
-    def _gate_and_record(self, frame_no: int, dt_box: list, rec_res: list) -> None:
+    def _gate_and_record(self, frame_no: int, dt_box: list, rec_res: list,
+                         frame: Optional[np.ndarray] = None,
+                         ab_checked: bool = False) -> None:
         """Gate one frame's lines and append them as raw records; with an
-        AB section, only frames inside it record."""
-        if self._in_ab_section(frame_no):
-            for box, text, _prob in self._gate_lines(dt_box, rec_res):
-                self.raw_records.append(RawRecord(frame_no, box, text))
+        AB section, only frames inside it record (``ab_checked``: the
+        caller applied that gate to the real frame number). With
+        ``debug_ocr_loss``, ``frame`` is the image the loss debugger
+        dumps."""
+        if not ab_checked and not self._in_ab_section(frame_no):
+            return
+        kept_before = len(self.raw_records)
+        for box, text, _prob in self._gate_lines(dt_box, rec_res):
+            self.raw_records.append(RawRecord(frame_no, box, text))
+        if self.config.debug_ocr_loss and frame is not None:
+            self._maybe_dump_ocr_loss(frame, frame_no, self.raw_records[kept_before:])
+
+    # characters of the CJK-family scripts the loss debugger watches
+    _LOSS_RE = re.compile(r"[一-龥㐀-䶵㄰-㆏가-힣ࠀ-一]")
+
+    def _maybe_dump_ocr_loss(self, frame: np.ndarray, frame_no: int, kept) -> None:
+        """Write ``loss/<frame_no>.png`` beside the video, the frame with the
+        area (blue) and the kept lines' boxes (red), when a ch,
+        chinese_cht, japan or korean read kept text but lost every CJK
+        character (reference backend/tools/subtitle_ocr.py:88-102)."""
+        if self.engine.family not in ("ch", "chinese_cht", "japan", "korean"):
+            return
+        line = "".join(r.text for r in kept)
+        if not line or self._LOSS_RE.search(line) is not None:
+            return
+        import cv2
+
+        loss_dir = os.path.join(os.path.dirname(self.video_path), "loss")
+        os.makedirs(loss_dir, exist_ok=True)
+        img = frame[:, :, ::-1].copy()  # RGB -> BGR for cv2
+        if self.sub_area is not None:
+            a = self.sub_area
+            cv2.rectangle(img, (a.xmin, a.ymin), (a.xmax, a.ymax), (255, 0, 0), 2)
+        for r in kept:
+            xmin, xmax, ymin, ymax = r.coord
+            cv2.rectangle(img, (xmin, ymin), (xmax, ymax), (0, 0, 255), 2)
+        cv2.imwrite(os.path.join(loss_dir, f"{str(frame_no).zfill(8)}.png"), img)
+
+    def capture_frame_with_subtitle_area(self, output_path: Optional[str] = None
+                                         ) -> Optional[str]:
+        """Save the first frame with the subtitle area drawn on it, as
+        ``sub_area.jpg`` beside the SRT unless ``output_path`` is given
+        (reference backend/main.py:193-226). Needs OpenCV."""
+        import cv2
+
+        frame = read_frames(self.video, [0])[0]
+        if frame is None:
+            return None
+        frame = frame[:, :, ::-1].copy()  # RGB -> BGR for cv2
+        if self.sub_area is not None:
+            a = self.sub_area
+            cv2.rectangle(frame, (a.xmin, a.ymin), (a.xmax, a.ymax), (0, 255, 0), 2)
+            cv2.putText(frame, "Subtitle Area", (a.xmin, max(0, a.ymin - 10)),
+                        cv2.FONT_HERSHEY_SIMPLEX, 0.9, (0, 255, 0), 2)
+        if output_path is None:
+            output_path = os.path.join(os.path.dirname(self.subtitle_output_path),
+                                       "sub_area.jpg")
+        cv2.imwrite(output_path, frame)
+        return output_path
+
+    def dump_raw_records(self, path: Optional[str] = None) -> str:
+        """Write the raw records as ``raw.txt`` beside the SRT (or to
+        ``path``) in the reference's line format (the reference keeps it
+        with debugNoDeleteCache, backend/main.py:981-987)."""
+        if path is None:
+            path = os.path.join(os.path.dirname(self.subtitle_output_path), "raw.txt")
+        write_raw(self.raw_records, path)
+        return path
 
     def upload_band(self) -> Optional[Tuple[int, int]]:
         """Rows (y0, y1) the OCR pass uploads: the area plus a margin (so the
@@ -288,16 +369,17 @@ class SubtitleExtractor:
     def refine_keyframe_spans(self, spans, samples) -> None:
         """Split scanner spans where the OCR text changes and record each
         group's medoid read (under the timeline key of its start). ``samples``:
-        [(span_idx, frame_no, dt_box, rec_res)] in frame order per span.
+        [(span_idx, frame_no, dt_box, rec_res, frame)] in frame order per
+        span, ``frame`` None unless the loss debugger keeps it.
         Rebuilds ``self.timeline``; textless groups keep their (empty)
         timeline cue but record nothing."""
         thr = self.config.threshold_text_similarity / 100.0
         by_span = defaultdict(list)
-        for si, fn, dt_box, rec_res in samples:
+        for si, fn, dt_box, rec_res, frame in samples:
             kept = self._gate_lines(dt_box, rec_res)
             text = "".join(t.replace(" ", "") for _, t, _ in kept)
             conf = float(np.mean([p for _, _, p in kept])) if kept else 0.0
-            by_span[si].append((fn, text, conf, dt_box, rec_res))
+            by_span[si].append((fn, text, conf, dt_box, rec_res, frame))
         self.timeline = SrtFile()
         for si, sp in enumerate(spans):
             ss = by_span.get(si)
@@ -323,8 +405,8 @@ class SubtitleExtractor:
                 best = medoid_of(g)
                 # recorded under the timeline key int(ms / fps), which is not
                 # a frame number: the AB gate was applied to the span above
-                for box, text, _prob in self._gate_lines(best[3], best[4]):
-                    self.raw_records.append(RawRecord(self.ms_to_frameno(start_ms), box, text))
+                self._gate_and_record(self.ms_to_frameno(start_ms), best[3], best[4],
+                                      frame=best[5], ab_checked=True)
 
     def extract_frame_by_keyframe(self) -> None:
         """Pass 1 scans; pass 2 OCRs the within-span samples (decoded in one
@@ -337,13 +419,15 @@ class SubtitleExtractor:
         pairs = [(m, f) for m, f in zip(metas, decoded) if f is not None]
         B = self.config.frame_batch
         y0, y1 = self.upload_band() or (0, self.frame_height)
+        # the sampled frames are kept only for the loss debugger
+        keep_frames = self.config.debug_ocr_loss
         samples = []
         for i in range(0, len(pairs), B):
             self._check_cancel()
             chunk = np.stack([f for _, f in pairs[i : i + B]])
             results = self.engine.predict_batch(chunk[:, y0:y1], origin=(y0, 0))
-            for (m, _), (dt_box, rec_res) in zip(pairs[i : i + B], results):
-                samples.append((m[0], m[1], dt_box, rec_res))
+            for (m, f), (dt_box, rec_res) in zip(pairs[i : i + B], results):
+                samples.append((m[0], m[1], dt_box, rec_res, f if keep_frames else None))
             self.update_progress(ocr=min(100.0, (i + B) / max(1, len(pairs)) * 100))
         t2 = time.perf_counter()
         self.refine_keyframe_spans(spans, samples)
@@ -368,8 +452,7 @@ class SubtitleExtractor:
             if manifest is not None and manifest.last_frame_no > 0:
                 self.raw_records.extend(manifest.records)
                 start_frame = manifest.last_frame_no
-                print(f"resuming from frame {start_frame} "
-                      f"({len(manifest.records)} records restored)")
+                self.append_output(tr("ResumeFrom", start_frame, len(manifest.records)))
             else:
                 manifest = ProgressManifest(path, "fps")
         stream = FrameStream(self.video, batch_size=self.config.frame_batch,
@@ -385,7 +468,8 @@ class SubtitleExtractor:
             n_valid = int(batch.valid.sum())
             results = self.engine.predict_batch(frames, origin=origin)[:n_valid]
             for i, (dt_box, rec_res) in enumerate(results):
-                self._gate_and_record(int(batch.frame_nos[i]), dt_box, rec_res)
+                self._gate_and_record(int(batch.frame_nos[i]), dt_box, rec_res,
+                                      frame=batch.frames[i])
             n_samples += n_valid
             done = float(batch.frame_nos[n_valid - 1]) / max(1, self.frame_count)
             self.update_progress(frame_extract=done * 100, ocr=done * 100)
@@ -437,6 +521,8 @@ class SubtitleExtractor:
         t1 = time.perf_counter()
         if self.sub_area is None:
             self.apply_filters()
+        if self.config.debug_no_delete_cache:
+            self.dump_raw_records()
         self.generate_subtitle_file()
         if self.config.word_segmentation:
             reformat_execute(self.subtitle_output_path, self.config.language)
@@ -445,8 +531,9 @@ class SubtitleExtractor:
             srt_to_txt(self.subtitle_output_path)
         self.pass_seconds["post"] = time.perf_counter() - t1
         self.pass_seconds["total"] = time.perf_counter() - t0
-        print(f"extraction finished in {self.pass_seconds['total']:.1f}s -> "
-              f"{self.subtitle_output_path}")
+        self.append_output(tr("ExtractionDone", f"{self.pass_seconds['total']:.1f}",
+                              self.subtitle_output_path))
+        self.append_output(tr("SubLocation", self.subtitle_output_path))
         return self.subtitle_output_path
 
     def generate_subtitle_file(self) -> None:

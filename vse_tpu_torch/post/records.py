@@ -1,16 +1,18 @@
 """Raw OCR record model (the parts of the JAX package's module that the
-port's main path uses).
+port uses).
 
-The reference streams OCR output through a ``raw.txt`` file (reference
+The reference streams OCR output through a ``raw.txt`` file with lines
+"NNNNNNNN\t(xmin, xmax, ymin, ymax)\ttext\n" (reference
 backend/tools/subtitle_ocr.py:64-66, backend/main.py:671-729); the port, like
-the JAX package, keeps the records in memory.
+the JAX package, keeps the records in memory and writes that format only for
+the debug dump (``write_raw``).
 """
 
 from __future__ import annotations
 
 import unicodedata
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Iterable, List, Tuple
 
 
 @dataclass
@@ -18,6 +20,15 @@ class RawRecord:
     frame_no: int
     coord: Tuple[int, int, int, int]  # (xmin, xmax, ymin, ymax)
     text: str
+
+    def to_line(self) -> str:
+        return f"{str(self.frame_no).zfill(8)}\t{self.coord}\t{self.text}\n"
+
+
+def write_raw(records: Iterable[RawRecord], path: str) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        for r in records:
+            f.write(r.to_line())
 
 
 def concat_same_frame(records: List[RawRecord]) -> List[RawRecord]:

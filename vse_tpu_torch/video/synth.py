@@ -19,8 +19,9 @@ drives (made by ``tools/make_torch_smoke_fixture.py``): ``recipe.json``,
 three cues in a subtitle area, ``recipe_fps.json``, the same cues with a
 corner watermark and a short scene-text line and no area, the ch clips
 ``recipe_ch.json`` and ``recipe_ch_fps_short.json``, and one keyframe clip
-for each of the ten non-CJK families in ``recipe_scripts.json`` (``{family:
-recipe}``, each with its ``language`` code; ``load_script_fixture``).
+for each of the ten non-CJK families and the two last CJK families (japan,
+chinese_cht) in ``recipe_scripts.json`` (``{family: recipe}``, each with
+its ``language`` code; ``load_script_fixture``).
 """
 
 from __future__ import annotations
@@ -53,11 +54,12 @@ def load_fixture(path: str = SMOKE_FIXTURE, recipe: str = "recipe.json"
 
 SCRIPT_FAMILIES = ("latin", "cyrillic", "devanagari", "arabic", "korean", "el", "ta",
                    "te", "ka", "th")
+CJK_FAMILIES = ("japan", "chinese_cht")
 
 
 def load_script_fixture(family: str, path: str = SMOKE_FIXTURE
                         ) -> Tuple[Dict[str, np.ndarray], dict]:
-    """(bands, recipe) of a non-CJK family's keyframe clip: its recipe in
+    """(bands, recipe) of a family's keyframe clip: its recipe in
     ``recipe_scripts.json``, its bands the ``<family>_`` keys of the shared
     band file."""
     with open(os.path.join(path, "recipe_scripts.json"), "r", encoding="utf-8") as f:
