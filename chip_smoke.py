@@ -80,17 +80,37 @@ Phases, each timed; any failure raises and the script exits non-zero:
    through ``ExtractionService`` in thread isolation, each SRT equal to its
    single-video reference. Process isolation is tested on the CPU only
    (``tests/test_torch_isolation.py``): a child needs a video file, and
-   this machine is not promised a decoder for one.
+   this machine is not promised a decoder for one;
+10. the sync re-timer on its job of ``vse_tpu_torch/sync/synth.py`` (made
+   from the seed in ``assets/smoke/reference_sync.json``, whose WAVs'
+   sha256 must match): two 24-minute 12 kHz WAVs, the second with a 3.2 s
+   insert at 11 minutes, a script of ~300 cues, and two 20 s 720p
+   in-memory clips with scene cuts. ``make_keyframes(..., device="cuda")``
+   writes each clip's SCXviD log through K2's f32-gray form (16 launches a
+   clip, [33, 184, 384] but the first [32, ...] and the last); each log
+   must equal the JAX package's, and each launch's stats its plain
+   version's (``text_cells`` exact, the rest within rtol 1e-5; a second
+   launch bit-equal). Then ``vse_tpu_torch.sync.run`` with those logs
+   (``--src-fps 25 --dst-fps 25 --kf-mode all``), once with the numpy
+   matcher and once with the device matcher (``VSE_SYNC_DEVICE=1``,
+   ``torch.fft`` on the card): each SRT must equal the JAX runner's. It
+   prints where the pass's time goes (WAV loads, matcher calls) and times
+   the gray form at [33, 184, 384] (``at_sync_gray``). The GUI is tested on
+   the CPU only: its extraction is phase 9's service, and its HTTP surface
+   needs a video file and OpenCV.
 
 Each path of phases 4-6 runs twice (cold, warm), and so do latin, arabic,
 korean (phase 7) and japan (phase 8) (the other families once), with the
 launch counts set to 0 just before each run and read just after;
-``launches_by_path`` holds the last run's of each path. Each timed row (a
+``launches_by_path`` holds the last run's of each path (phase 10's paths:
+``sync_keyframes_src``, ``sync_keyframes_dst``, ``sync_numpy``,
+``sync_device``). Each timed row (a
 kernel's top-level numbers, and ``at_c293``, ``at_c21060``, ``at_c21249``,
 ``at_ch_area`` and ``at_scripts``) names the paths that run the kernel at
 its shape (``row_paths``: en's C = 69 and 1280-wide band with phase 9's
 paths, latin's C = 293, ch's and chinese_cht's C = 21,060, japan's C =
-21,249, ch's 400-wide band, the families' band widths) and their launches
+21,249, ch's 400-wide band, the families' band widths, the sync path's
+gray frames) and their launches
 (``row_launches``); ``launches`` is the sum over all paths. The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this script, it exits non-zero and prints no result.
@@ -801,6 +821,171 @@ def fps_path(label, clip, reference, raw_ref, engine, card):
     return fps
 
 
+def sync_phase(card, by_path):
+    """Phase 10: the sync re-timer's keyframe logs through K2's gray form,
+    then two re-timings (numpy and device matcher), each output equal to
+    the JAX package's. Returns the gray form's timing row."""
+    import torch
+
+    from vse_tpu_torch.kernels import keyframe as k2
+    from vse_tpu_torch.sync import match, runner, synth, wav
+    from vse_tpu_torch.sync.cli import create_arg_parser
+    from vse_tpu_torch.sync.demux import make_keyframes
+    from vse_tpu_torch.video.synth import SMOKE_FIXTURE
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(SMOKE_FIXTURE, "reference_sync.json"), encoding="utf-8") as f:
+        ref = json.load(f)
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        src, dst, sums = synth.write_wav_pair(tmp, ref["seed"])
+        if sums != ref["wav_sha256"]:
+            raise AssertionError(
+                f"phase 10: the generator wrote other WAVs than the JAX references were made "
+                f"from (sha256 {sums}, want {ref['wav_sha256']}): this machine's numpy draws "
+                "another stream from the seed, so the references do not apply")
+        script = os.path.join(tmp, "in.srt")
+        cues = synth.script_cues(ref["seed"])
+        synth.write_srt(script, cues)
+        print(f"sync job: two WAVs of {os.path.getsize(src) / 1e6:.1f} / "
+              f"{os.path.getsize(dst) / 1e6:.1f} MB (sha256 equal to the references'), "
+              f"{len(cues)} cues, written in {time.perf_counter() - t0:.2f} s", flush=True)
+
+        # the keyframe logs, every K2 launch kept for the parity check
+        launched = []
+        counted = k2.frame_stats_gray
+
+        def keep(gray, p=k2.ScanParams()):
+            out = counted(gray, p)
+            launched.append((gray.clone(), out.clone()))
+            return out
+
+        logs, frames = {}, None
+        k2.frame_stats_gray = keep
+        try:
+            for name in ("src", "dst"):
+                clip = synth.scene_clip(ref["seed"], name, out=frames)
+                frames = clip.frames
+                logs[name] = os.path.join(tmp, f"{name}.keyframes.txt")
+                k2.launches = 0
+                t0 = time.perf_counter()
+                make_keyframes(clip, logs[name], device="cuda")
+                secs = time.perf_counter() - t0
+                by_path[f"sync_keyframes_{name}"] = {"K1": 0, "K2": k2.launches}
+                with open(logs[name], encoding="utf-8") as f:
+                    got = f.read()
+                kfs = [i - 3 for i, line in enumerate(got.splitlines()) if line == "i"]
+                print(f"sync keyframes, {name} clip {list(clip.frames.shape)} on {card}: "
+                      f"{secs:.3f} s, K2 launches {k2.launches}, keyframes {kfs}; log equal to "
+                      f"the JAX make_keyframes log: {got == ref['keyframes'][name]}", flush=True)
+                if got != ref["keyframes"][name]:
+                    failures.append(f"sync keyframes {name}: the log differs from the JAX "
+                                    f"package's:\n--- got\n{got}\n--- want\n{ref['keyframes'][name]}")
+                n_batches = -(-len(clip.frames) // 32)
+                if k2.launches != n_batches:
+                    failures.append(f"sync keyframes {name}: K2 launched {k2.launches} times, "
+                                    f"want {n_batches}")
+        finally:
+            k2.frame_stats_gray = counted
+        del frames, clip
+        gc.collect()
+
+        # each launch against the plain version, and launched again
+        err = 0.0
+        for gray, got in launched:
+            want = k2.frame_stats_gray_plain(gray)
+            if not torch.equal(got[:, 1], want[:, 1]):
+                failures.append(f"K2 gray {list(gray.shape)}: text_cells differ")
+            if not torch.equal(got, k2.frame_stats_gray_cuda(gray)):
+                failures.append(f"K2 gray {list(gray.shape)}: two runs differ")
+            err = max(err, check_close(f"K2 gray {list(gray.shape)}", got, want, 1e-5, 1e-6))
+        shapes = sorted({tuple(g.shape) for g, _ in launched})
+        print(f"K2 gray form: {len(launched)} launches of shapes {shapes}, each within rtol "
+              f"1e-5 of the plain version (max abs err {err!r}), text_cells exact, "
+              "deterministic", flush=True)
+        sample = launched[1][0]  # a [33, 184, 384] batch of the source clip
+        del launched
+
+        # the re-timings, the WAV loads and the matcher calls timed
+        loads = []
+
+        class TimedWavStream(wav.WavStream):
+            def __init__(self, *args, **kwargs):
+                t0 = time.perf_counter()
+                super().__init__(*args, **kwargs)
+                loads.append(time.perf_counter() - t0)
+
+        calls = {}  # {matcher: [calls, host-clock seconds]}
+
+        def timed(name, matcher):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = matcher(*args, **kwargs)
+                calls[name][0] += 1
+                calls[name][1] += time.perf_counter() - t0
+                return out
+            return call
+
+        out = os.path.join(tmp, "out.srt")
+        argv = [{"SRC": src, "DST": dst, "SCRIPT": script, "OUT": out, "KF_SRC": logs["src"],
+                 "KF_DST": logs["dst"]}.get(a, a) for a in ref["argv"]] + ["--device", "cuda"]
+        runner.WavStream = TimedWavStream
+        wav.match_template_numpy = timed("numpy", match.match_template_numpy)
+        wav.match_template_device = timed("device", match.match_template_device)
+        try:
+            for key, flag, path in (("srt", "0", "sync_numpy"), ("srt_device", "1", "sync_device")):
+                os.environ["VSE_SYNC_DEVICE"] = flag
+                loads.clear()
+                calls.update(numpy=[0, 0.0], device=[0, 0.0])
+                k2.launches = 0
+                t0 = time.perf_counter()
+                runner.run(create_arg_parser().parse_args(argv))
+                secs = time.perf_counter() - t0
+                by_path[path] = {"K1": 0, "K2": k2.launches}
+                with open(out, encoding="utf-8") as f:
+                    got = f.read()
+                used, other = ("device", "numpy") if flag == "1" else ("numpy", "device")
+                n_calls, spent = calls[used]
+                matcher = "device (torch.fft on the card)" if flag == "1" else "numpy"
+                print(f"sync re-time, {matcher} matcher, on {card}: {secs:.3f} s wall; WAV loads "
+                      f"{[round(x, 3) for x in loads]} s; {n_calls} matcher calls, {spent:.3f} s, "
+                      f"{spent / max(n_calls, 1) * 1e3:.3f} ms a call; {got.count('-->')} cues; SRT "
+                      f"equal to the JAX runner's: {got == ref[key]}", flush=True)
+                if got != ref[key]:
+                    want = ref[key].split("\n\n")
+                    diff = [(a, b) for a, b in zip(got.split("\n\n"), want) if a != b][:5]
+                    failures.append(f"sync re-time ({matcher}): the SRT differs from the JAX "
+                                    f"runner's; first cues that differ (port, JAX): {diff}")
+                if n_calls == 0 or calls[other][0]:
+                    failures.append(f"sync re-time: matcher calls {calls}, want only {used}")
+        finally:
+            runner.WavStream = wav.WavStream
+            wav.match_template_numpy = match.match_template_numpy
+            wav.match_template_device = match.match_template_device
+            os.environ.pop("VSE_SYNC_DEVICE", None)
+    if failures:
+        raise AssertionError("phase 10:\n" + "\n".join(failures))
+
+    # the gray form at the sync path's shape
+    T, H, W = sample.shape
+    geo = k2.launch_geometry(T, H, W)
+    partials, res = k2.alloc_outputs(T, geo, sample.device)
+    print(f"K2 gray {[T, H, W]}: grid {geo.n_parts} x {geo.n_runs} blocks of {geo.threads} "
+          f"threads, run {geo.run} frames", flush=True)
+    row = timing_row(
+        f"K2 gray {[T, H, W]}",
+        lambda: k2.launch(sample, geo, k2.ScanParams(), partials, res),
+        lambda: k2.frame_stats_gray(sample), lambda: k2.frame_stats_gray_plain(sample),
+        T * H * W * 4 + T * 16, 20.0 * T * H * W,
+    )
+    row.update(shape=[T, H, W], max_abs_err=err)
+    del sample, partials, res
+    torch.cuda.empty_cache()
+    phase("sync re-timer", t_phase)
+    return row
+
+
 def main() -> int:
     t_all = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -843,6 +1028,9 @@ def main() -> int:
     phase("kernel parity", t0)
 
     launches, by_path = main_path(card)
+    rows["K2_sync_gray"] = sync_phase(card, by_path)
+    rows["K2"]["max_abs_err"] = max(rows["K2"]["max_abs_err"], rows["K2_sync_gray"]["max_abs_err"])
+    launches = {k: sum(p[k] for p in by_path.values()) for k in ("K1", "K2")}
     from vse_tpu_torch.video.synth import CJK_FAMILIES, SCRIPT_FAMILIES, load_script_fixture
 
     meta = {
@@ -858,7 +1046,8 @@ def main() -> int:
     ch_paths = ("ch_keyframe", "ch_fps_short")
     row_paths = {"K1": en_paths, "K1_c293": ("latin",),
                  "K1_c21060": ch_paths + ("chinese_cht",), "K1_c21249": ("japan",),
-                 "K2": ("keyframe", "many_keyframe", "service"), "K2_ch_area": ch_paths}
+                 "K2": ("keyframe", "many_keyframe", "service"), "K2_ch_area": ch_paths,
+                 "K2_sync_gray": ("sync_keyframes_src", "sync_keyframes_dst")}
     areas = {f: load_script_fixture(f)[1]["area"] for f in SCRIPT_FAMILIES + CJK_FAMILIES}
     for key in rows:
         if key.startswith("K2_w"):  # the families whose area is this wide
@@ -891,6 +1080,7 @@ def main() -> int:
         else:
             entry["at_ch_area"] = rows["K2_ch_area"]
             entry["at_scripts"] = {k: v for k, v in rows.items() if k.startswith("K2_w")}
+            entry["at_sync_gray"] = rows["K2_sync_gray"]
         kernels.append(entry)
     print(f"[phase] total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

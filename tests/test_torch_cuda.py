@@ -220,6 +220,72 @@ def test_k2_fma_gray_matches_plain_and_jax_on_bands(cuda, band):
         torch.testing.assert_close(got, jax_stats, rtol=1e-5, atol=1e-6)
 
 
+# K2's gray form: the sync path's padded batch, the decimated 720p frame
+# unpadded, an odd width (the scalar path), T = 1, and an unaligned tensor
+K2_GRAY_SHAPES = [(33, 184, 384), (32, 184, 384), (21, 184, 384), (33, 180, 320),
+                  (5, 38, 301), (1, 184, 384), (1, 1, 1), (7, 20, 128)]
+
+
+def gray_frames(shape, seed):
+    """Scenes of random 4 x 4 blocks that change every few frames (edges,
+    text-like cells and cuts) in f32 gray."""
+    t, h, w = shape
+    rng = np.random.default_rng(seed)
+    blocks = rng.random((t, -(-h // 4), -(-w // 4))).astype(np.float32)
+    blocks[1::3] = blocks[0::3][: len(blocks[1::3])]  # steady runs between cuts
+    return np.repeat(np.repeat(blocks, 4, axis=1), 4, axis=2)[:, :h, :w].copy()
+
+
+@pytest.mark.parametrize("shape", K2_GRAY_SHAPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_k2_gray_cuda_matches_plain(cuda, shape, aligned):
+    f = torch.from_numpy(gray_frames(shape, sum(shape)))
+    if aligned:
+        x = f.to(cuda)
+    else:  # a contiguous tensor 4 bytes past a 16-byte boundary: scalar loads
+        buf = torch.empty(f.numel() + 1, device=cuda)
+        x = buf[1:].view(shape)
+        x.copy_(f)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    got = k2.frame_stats_gray_cuda(x)
+    want = k2.frame_stats_gray_plain(x)
+    assert torch.equal(got[:, 1], want[:, 1])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert got[0, 2].item() == 0.0
+    before = k2.launches
+    again = k2.frame_stats_gray(x)
+    assert k2.launches == before + 1
+    assert torch.equal(got, again)
+    on_cpu = k2.frame_stats_gray(f)  # a CPU tensor: the plain version, not counted
+    assert k2.launches == before + 1
+    torch.testing.assert_close(on_cpu, want.cpu(), rtol=1e-5, atol=1e-6)
+
+
+def test_k2_gray_form_equals_the_u8_form_on_its_gray(cuda):
+    """K2 on u8 RGB and K2 on the table gray of the same frames read the
+    same stats bit for bit: the two loads feed one kernel body."""
+    rng = np.random.default_rng(5)
+    u8 = torch.from_numpy(rng.integers(0, 256, (33, 45, 80, 3)).astype(np.uint8)).to(cuda)
+    assert torch.equal(k2.frame_stats_cuda(u8), k2.frame_stats_gray_cuda(k2.rgb_to_gray(u8)))
+
+
+def test_k2_gray_issues_only_its_kernel(cuda):
+    x = torch.zeros((33, 184, 384), device=cuda)
+    assert_only_kernels(lambda: k2.frame_stats_gray(x), 1, "keyframe_stats")
+
+
+def test_eager_gray_on_the_card_is_the_cpu_eager_gray(cuda):
+    """The sync path's source-order gray on the card, on all 2^24 colours,
+    bit-equal to the CPU's (which tests/test_torch_kernel_repairs.py holds
+    bit-equal to the JAX package's eager ``rgb_to_gray``): a CUDA division
+    by a Python scalar would be a reciprocal multiply (ROADMAP fault 10)."""
+    idx = torch.arange(1 << 24, dtype=torch.int64)
+    rgb = torch.stack([idx >> 16, (idx >> 8) & 255, idx & 255], -1).to(torch.uint8)
+    want = k2.rgb_to_gray_eager(rgb)
+    got = k2.rgb_to_gray_eager(rgb.to(cuda)).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def distinct_batches(n, shape):
     """Batches whose every byte depends on the batch and its position."""
     base = np.arange(int(np.prod(shape)), dtype=np.int64).reshape(shape)
@@ -272,6 +338,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         k1.greedy_decode_cuda(torch.zeros((2, 4, 3), device=cuda).transpose(1, 2))
     with pytest.raises(TypeError):
         k2.frame_stats_cuda(torch.zeros((2, 8, 8, 3), device=cuda))
+    with pytest.raises(TypeError):
+        k2.frame_stats_gray_cuda(torch.zeros((2, 8, 8), dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        k2.frame_stats_gray_cuda(torch.zeros((2, 8, 16), device=cuda)[:, :, ::2])
+    with pytest.raises(ValueError):
+        k2.frame_stats_gray_cuda(torch.zeros((2, 8, 8, 3), device=cuda))
     with pytest.raises(ValueError):
         k2.frame_stats_cuda(torch.zeros((2, 8, 16, 3), dtype=torch.uint8, device=cuda)[:, :, ::2])
     with pytest.raises(ValueError):

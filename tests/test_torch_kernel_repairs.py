@@ -80,6 +80,18 @@ def test_the_two_grays_differ_where_the_scan_says():
     assert diff.max() <= 2 and 0.2 < np.mean(diff > 0) < 0.6
 
 
+@pytest.mark.parametrize("hi", range(4))
+def test_eager_gray_is_the_eager_jax_gray_on_every_colour(hi):
+    """The sync path's source-order gray (``rgb_to_gray_eager``) against the
+    JAX package's ``rgb_to_gray`` run eagerly (op by op, no ``jax.jit``, as
+    ``vse_tpu/sync/demux.py::make_keyframes`` runs it): bit-equal on all
+    2^24 colours."""
+    rgb = all_colours(hi)
+    want = np.asarray(jax_keyframe.rgb_to_gray(jnp.asarray(rgb)))
+    got = k2.rgb_to_gray_eager(torch.from_numpy(rgb)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
 @pytest.fixture(scope="module")
 def band():
     return noisy_band()

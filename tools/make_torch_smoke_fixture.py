@@ -105,6 +105,21 @@ fast) on clips written losslessly as for the CLI:
                           band), and the fps strategy on ``recipe_fps.json``
                           and ``recipe_fps_short.json`` with no area
 
+With ``--sync``, the sync phase's references, on the job that
+``vse_tpu_torch/sync/synth.py`` makes from ``SYNC_SEED`` (two 24-minute
+WAVs, the second with a 3.2 s insert at 11 minutes, a script of ~300 cues,
+and two 20 s 720p clips with scene cuts, the second with a 3.2 s insert):
+
+  reference_sync.json     ``{"seed", "wav_sha256": {"src", "dst"},
+                          "keyframes": {"src", "dst"}, "srt",
+                          "srt_device", "argv"}``: the JAX package's
+                          ``make_keyframes`` logs of the two clips (each
+                          written losslessly), and its ``sync.runner.run``
+                          output with those logs (``--src-fps 25
+                          --dst-fps 25 --kf-mode all``), once with the
+                          numpy matcher and once with the device matcher
+                          (``VSE_SYNC_DEVICE=1``, XLA's FFT on the CPU)
+
 Band files that exist are reused as committed (they are rendered only when
 they are missing; a family whose bands are missing from
 ``bands_scripts.npz`` is drawn and added). Run it with JAX on the CPU (it needs PIL, OpenCV and the
@@ -130,6 +145,7 @@ sys.path.insert(0, ROOT)
 OUT = os.path.join(ROOT, "vse_tpu_torch", "assets", "smoke")
 FONT = "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf"
 W, H, FPS, N = 1280, 720, 25, 500
+SYNC_SEED = 10
 BG = (30, 40, 60)
 BAND_Y, BAND_H = 600, 104
 # (text, first frame, last frame), 1-based and inclusive. The scanner's
@@ -528,14 +544,62 @@ def main_many() -> None:
         f.write("\n")
 
 
+def sync_argv(src: str, dst: str, script: str, out: str, kf_src: str, kf_dst: str) -> list:
+    """The re-timer's arguments for the sync phase's job (both packages)."""
+    return ["--src", src, "--dst", dst, "--script", script, "-o", out,
+            "--src-keyframes", kf_src, "--dst-keyframes", kf_dst,
+            "--src-fps", "25", "--dst-fps", "25", "--kf-mode", "all"]
+
+
+def main_sync() -> None:
+    from vse_tpu.sync.cli import create_arg_parser
+    from vse_tpu.sync.demux import make_keyframes
+    from vse_tpu.sync.runner import run
+    from vse_tpu_torch.sync import synth
+
+    ref = {"seed": SYNC_SEED, "keyframes": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst, ref["wav_sha256"] = synth.write_wav_pair(tmp, SYNC_SEED)
+        script = os.path.join(tmp, "in.srt")
+        synth.write_srt(script, synth.script_cues(SYNC_SEED))
+        logs = {}
+        for name in ("src", "dst"):
+            clip = synth.scene_clip(SYNC_SEED, name)
+            path = os.path.join(tmp, f"{name}.avi")
+            write_lossless(clip.frames, path)
+            del clip
+            logs[name] = os.path.join(tmp, f"{name}.keyframes.txt")
+            make_keyframes(path, logs[name])
+            with open(logs[name], encoding="utf-8") as f:
+                ref["keyframes"][name] = f.read()
+        out = os.path.join(tmp, "out.srt")
+        argv = sync_argv(src, dst, script, out, logs["src"], logs["dst"])
+        ref["argv"] = sync_argv("SRC", "DST", "SCRIPT", "OUT", "KF_SRC", "KF_DST")
+        for key, flag in (("srt", "0"), ("srt_device", "1")):
+            os.environ["VSE_SYNC_DEVICE"] = flag
+            run(create_arg_parser().parse_args(argv))
+            with open(out, encoding="utf-8") as f:
+                ref[key] = f.read()
+        del os.environ["VSE_SYNC_DEVICE"]
+    write_json("reference_sync.json", ref)
+    print(f"--- reference_sync.json: keyframes {[k.count('i') for k in ref['keyframes'].values()]}, "
+          f"{ref['srt'].count('-->')} cues, device matcher's SRT equal to numpy's: "
+          f"{ref['srt'] == ref['srt_device']}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--language", default="en",
                     choices=["en", "ch", *SCRIPT_CUES, *CJK_CUES])
     ap.add_argument("--many", action="store_true",
                     help="write the JAX extract_many references instead")
+    ap.add_argument("--sync", action="store_true",
+                    help="write the sync phase's references instead")
     args = ap.parse_args()
     os.makedirs(OUT, exist_ok=True)
+    if args.sync:
+        main_sync()
+        return
     if args.many:
         main_many()
         return

@@ -4,6 +4,10 @@
         [--area ymin,ymax,xmin,xmax] [--language ch] [--mode fast] \\
         [--config config.json] [--output DIR] [--txt] \\
         [--no-word-segmentation] [--interactive-filters] [--device cuda]
+    python -m vse_tpu_torch.cli sync --src SRC --dst DST --script S [...] \\
+        [--device cuda]
+    python -m vse_tpu_torch.cli gui [--host H] [--port P] [--config C] \\
+        [--device cuda]
 
 Writes each video's SRT next to it (or into ``--output``); one OCR engine
 serves all the videos. With no ``--area`` it runs the fps strategy with the
@@ -13,7 +17,10 @@ config's language runs (``VseConfig.language``, ``ch``), as in the JAX
 package. ``--config`` reads a reference-format ``config.json`` (``{"Main":
 {...}}``, ``VseConfig.from_json``); the flags given override it. Mode fast
 is ported, for every language; decoding a file needs OpenCV. A missing
-video makes the exit code 1.
+video makes the exit code 1. ``sync`` runs the audio re-timer with the JAX
+package's flags (``vse_tpu_torch/sync/cli.py``) and ``gui`` the web GUI
+(``vse_tpu_torch/gui/server.py``), routed as the JAX CLI routes them; both
+run on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -108,9 +115,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--interactive-filters", action="store_true",
                    help="ask y/n for the watermark and scene-text filters")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    sub.add_parser("sync", add_help=False,
+                   help="audio-correlation subtitle re-timer (sushi-compatible flags, --device)")
+    sub.add_parser("gui", add_help=False,
+                   help="browser-based GUI (http server; see vse_tpu_torch/gui)")
+    args, rest = ap.parse_known_args(argv)
     if args.command == "extract":
+        if rest:
+            ap.error(f"unrecognized arguments: {' '.join(rest)}")
         return cmd_extract(args)
+    if args.command == "sync":
+        from vse_tpu_torch.sync.cli import parse_args_and_run
+
+        parse_args_and_run(rest)
+        return 0
+    if args.command == "gui":
+        from vse_tpu_torch.gui.server import main as gui_main
+
+        gui_main(rest)
+        return 0
     ap.print_help()
     return 2
 

@@ -15,6 +15,7 @@ import json
 import os
 from dataclasses import dataclass
 from enum import Enum
+from typing import Tuple
 
 
 class Mode(str, Enum):
@@ -38,6 +39,22 @@ class Decoder(str, Enum):
 
     OPENCV = "opencv"
     FFMPEG = "ffmpeg"
+
+
+# The subtitle languages of the reference (reference backend/interface/
+# en.ini:79-166), in the JAX package's order; the GUI lists them.
+LANGUAGES: Tuple[str, ...] = (
+    "ch", "en", "korean", "japan", "chinese_cht", "ta", "te", "ka",
+    "latin", "arabic", "cyrillic", "devanagari",
+    "af", "az", "bs", "cs", "cy", "da", "de", "es", "et", "fr", "ga",
+    "hr", "hu", "id", "is", "it", "ku", "la", "lt", "lv", "mi", "ms",
+    "mt", "nl", "no", "oc", "pi", "pl", "pt", "ro", "rs_latin", "sk",
+    "sl", "sq", "sv", "sw", "tl", "tr", "uz", "vi", "french", "german",
+    "ar", "fa", "ug", "ur", "ru", "rs_cyrillic", "be", "bg", "uk", "mn",
+    "abq", "ady", "kbd", "ava", "dar", "inh", "che", "lbe", "lez", "tab",
+    "hi", "mr", "ne", "bh", "mai", "ang", "bho", "mah", "sck", "new",
+    "gom", "sa", "bgc", "th", "el",
+)
 
 
 @dataclass(frozen=True)

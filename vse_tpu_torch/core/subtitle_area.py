@@ -10,7 +10,7 @@ axis-aligned rectangles, so GEOS is unnecessary.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass
@@ -51,6 +51,9 @@ class SubtitleArea:
             xmin=int(rx0 * width),
             xmax=int(rx1 * width),
         )
+
+    def as_tuple(self) -> Tuple[int, int, int, int]:
+        return (self.ymin, self.ymax, self.xmin, self.xmax)
 
     @property
     def width(self) -> int:

@@ -107,6 +107,8 @@ def library() -> ctypes.CDLL:
     lib.vse_ctc_greedy_decode.restype = i
     lib.vse_keyframe_stats.argtypes = [p, p] + [i] * 12 + [f, f, p, p, p, p]
     lib.vse_keyframe_stats.restype = i
+    lib.vse_keyframe_stats_gray.argtypes = [p] + [i] * 12 + [f, f, p, p, p, p]
+    lib.vse_keyframe_stats_gray.restype = i
     return lib
 
 

@@ -1,7 +1,7 @@
-"""Keyframe / text-presence scanner: kernel K2, its plain PyTorch version,
+"""Keyframe / text-presence scanner: kernel K2, its plain PyTorch versions,
 and the host span logic.
 
-Per frame of a cropped uint8 subtitle band the scanner computes 4 stats:
+Per frame of a cropped subtitle band the scanner computes 4 stats:
 
   0: edge_energy    mean |horizontal gradient| (text = dense vertical strokes)
   1: text_cells     fraction of segment-grid cells whose edge density
@@ -17,6 +17,12 @@ around it. ``launch_geometry`` is its grid, kept here so the CPU tests can
 check that it covers every pixel once. ``scan_stats_u8`` launches it for a
 CUDA tensor and uses ``frame_stats_plain`` only for a CPU tensor.
 ``find_spans`` (host) turns the [T, 4] stream into keyframe spans.
+
+K2 also takes the Pallas kernel's own input form, f32 gray [T, H, W]
+(``frame_stats_pallas``), which the sync re-timer's keyframe log feeds it
+(``vse_tpu_torch/sync/demux.py::make_keyframes``): ``frame_stats_gray``
+launches the same kernel with its gray load (``frame_stats_gray_cuda``) for
+a CUDA tensor and uses ``frame_stats_gray_plain`` for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ import torch.nn.functional as F
 
 from vse_tpu_torch.kernels import _build
 
-# launches of the CUDA kernel by scan_stats_u8 (plain-version calls and
-# direct frame_stats_cuda calls are not counted)
+# launches of the CUDA kernel by scan_stats_u8 and frame_stats_gray, both
+# forms in one count (plain-version calls and direct frame_stats_cuda /
+# frame_stats_gray_cuda calls are not counted)
 launches = 0
 
 
@@ -96,9 +103,18 @@ def frame_stats_plain(
     frames_u8: torch.Tensor, p: ScanParams = ScanParams()
 ) -> torch.Tensor:
     """Plain version of K2: u8 [T, H, W, 3] -> f32 [T, 4]."""
-    T, H, W, _ = frames_u8.shape
+    return frame_stats_gray_plain(rgb_to_gray(frames_u8), p)
+
+
+def frame_stats_gray_plain(
+    gray: torch.Tensor, p: ScanParams = ScanParams()
+) -> torch.Tensor:
+    """Plain version of K2's gray form: f32 gray [T, H, W], zero-padded
+    here to [T, Hp, Wp] (a no-op on an already padded input) -> f32 [T, 4]
+    (the reference's ``frame_stats_jnp`` on the padded frames)."""
+    T, H, W = gray.shape
     Hp, Wp = padded_hw(H, W, p)
-    gray = F.pad(rgb_to_gray(frames_u8), (0, Wp - W, 0, Hp - H))
+    gray = F.pad(gray, (0, Wp - W, 0, Hp - H))
     prev = torch.cat([gray[:1], gray[:-1]], dim=0)
     gx = (gray - torch.roll(gray, 1, dims=2)).abs()
     gx[:, :, 0] = 0.0
@@ -218,22 +234,27 @@ def alloc_outputs(T: int, g: Geometry, device) -> Tuple[torch.Tensor, torch.Tens
     return partials, buf[n_part:].view(torch.float32).view(T, 4)
 
 
-def launch(frames_u8: torch.Tensor, g: Geometry, p: ScanParams,
+def launch(frames: torch.Tensor, g: Geometry, p: ScanParams,
            partials: torch.Tensor, out: torch.Tensor) -> None:
-    """One K2 launch into preallocated buffers (``alloc_outputs``)."""
-    T, H, W, _ = frames_u8.shape
+    """One K2 launch into preallocated buffers (``alloc_outputs``): u8 RGB
+    [T, H, W, 3] through the table gray, f32 [T, H, W] as gray."""
+    T, H, W = frames.shape[:3]
     Hp, Wp = padded_hw(H, W, p)
-    lut, tickets = _consts(frames_u8.device, g.n_runs)
-    vec = W % 16 == 0 and frames_u8.data_ptr() % 16 == 0
-    with _build.on_device(frames_u8):
-        status = _build.library().vse_keyframe_stats(
-            frames_u8.data_ptr(), lut.data_ptr(), T, H, W, Hp, Wp,
-            g.n_strips, g.n_items, g.threads, g.n_parts, g.run, g.n_runs,
-            int(vec), p.edge_threshold, p.moderate_threshold,
+    lut, tickets = _consts(frames.device, g.n_runs)
+    # 16-byte loads: a strip row of u8 RGB is 48 bytes, of f32 gray 64
+    if frames.dtype == torch.uint8:
+        name, head, vec = "vse_keyframe_stats", (frames.data_ptr(), lut.data_ptr()), W % 16 == 0
+    else:
+        name, head, vec = "vse_keyframe_stats_gray", (frames.data_ptr(),), W % 4 == 0
+    vec = vec and frames.data_ptr() % 16 == 0
+    with _build.on_device(frames):
+        status = getattr(_build.library(), name)(
+            *head, T, H, W, Hp, Wp, g.n_strips, g.n_items, g.threads, g.n_parts,
+            g.run, g.n_runs, int(vec), p.edge_threshold, p.moderate_threshold,
             partials.data_ptr(), tickets.data_ptr(), out.data_ptr(),
-            _build.stream_of(frames_u8),
+            _build.stream_of(frames),
         )
-    _build.check(status, "vse_keyframe_stats")
+    _build.check(status, name)
 
 
 def frame_stats_cuda(
@@ -248,16 +269,37 @@ def frame_stats_cuda(
         raise ValueError(f"K2 takes [T, H, W, 3], got {tuple(frames_u8.shape)}")
     if not frames_u8.is_contiguous():
         raise ValueError("K2 takes a contiguous band")
+    return _alloc_and_launch(frames_u8, p)
+
+
+def _alloc_and_launch(frames: torch.Tensor, p: ScanParams) -> torch.Tensor:
+    """Check what both forms share, allocate the outputs and launch."""
     if (p.segment_height, p.segment_width) != (4, 8):
         raise ValueError("K2 is built for 4 x 8 cells")
-    T, H, W, _ = frames_u8.shape
+    T, H, W = frames.shape[:3]
     if H == 0 or W == 0:
         raise ValueError(f"K2 takes a non-empty frame, got {H} x {W}")
     g = launch_geometry(T, H, W, p)
-    partials, out = alloc_outputs(T, g, frames_u8.device)
+    partials, out = alloc_outputs(T, g, frames.device)
     if T:
-        launch(frames_u8, g, p, partials, out)
+        launch(frames, g, p, partials, out)
     return out
+
+
+def frame_stats_gray_cuda(
+    gray: torch.Tensor, p: ScanParams = ScanParams()
+) -> torch.Tensor:
+    """Launch K2 on a contiguous f32 gray CUDA tensor [T, H, W], padded to
+    [Hp, Wp] or not (the kernel reads the pad as zeros) (not counted)."""
+    if not gray.is_cuda:
+        raise ValueError("frame_stats_gray_cuda needs a CUDA tensor")
+    if gray.dtype != torch.float32:
+        raise TypeError(f"K2's gray form takes float32 frames, got {gray.dtype}")
+    if gray.dim() != 3:
+        raise ValueError(f"K2's gray form takes [T, H, W], got {tuple(gray.shape)}")
+    if not gray.is_contiguous():
+        raise ValueError("K2 takes a contiguous band")
+    return _alloc_and_launch(gray, p)
 
 
 def scan_stats_u8(
@@ -274,6 +316,22 @@ def scan_stats_u8(
     if frames_u8.device.type == "cpu":
         return frame_stats_plain(frames_u8, p)
     raise ValueError(f"unsupported device {frames_u8.device}")
+
+
+def frame_stats_gray(
+    gray: torch.Tensor, p: ScanParams = ScanParams()
+) -> torch.Tensor:
+    """K2 on f32 gray [T, H, W] -> stats [T, 4] (on the frames' device),
+    the JAX package's ``frame_stats`` on the frames zero-padded to [Hp,
+    Wp]. ``prev`` of frame 0 is frame 0 itself."""
+    global launches
+    if gray.is_cuda:
+        out = frame_stats_gray_cuda(gray, p)
+        launches += 1
+        return out
+    if gray.device.type == "cpu":
+        return frame_stats_gray_plain(gray, p)
+    raise ValueError(f"unsupported device {gray.device}")
 
 
 @dataclass
