@@ -99,6 +99,26 @@ Phases, each timed; any failure raises and the script exits non-zero:
    the CPU only: its extraction is phase 9's service, and its HTTP surface
    needs a video file and OpenCV.
 
+11. modes accurate and auto on the server det (ResNet-50, FPN 256, the
+   exported ``det_server`` weights) and the en rec head, against the JAX
+   package's engine given the same weights (``reference_accurate.json``,
+   ``tools/make_torch_smoke_fixture.py --accurate``; ROADMAP fault 15):
+   ``extract --area --mode accurate`` on the keyframe clip (per-frame
+   detection over all 500 frames: K1 once a chunk, K2 never), ``--mode
+   auto`` on the same clip (the K2 scan, then the server det on the
+   samples), and ``--mode accurate`` with no area on the short-cue clip
+   (the server det on the 576 x 960 canvas, then the filters), each run
+   cold and then warm, each SRT equal to the JAX SRT and every OCR line
+   (every frame's for the first, every sample's for the second, every line
+   before the filters for the third) equal in frame and text, its box
+   within 2 px and, where the box is equal, its score within
+   ``SCORE_ATOL``, but for ``FAULT_11``; then ``OcrEngine(decode="beam")``
+   on 8 band frames (ids and texts equal, boxes within 2 px, scores within
+   ``FAULT_11["beam"]``). It prints the pass seconds, the server det's
+   device ms per batch at [8, 128, 960], at the band's [8, 160, 960] and at
+   [8, 576, 960] (20 graph replays between CUDA events, TF32 off), and the
+   K1 and K2 launches of each path (``row_launches``).
+
 Each path of phases 4-6 runs twice (cold, warm), and so do latin, arabic,
 korean (phase 7) and japan (phase 8) (the other families once), with the
 launch counts set to 0 just before each run and read just after;
@@ -154,6 +174,10 @@ FAULT_11 = {
     # 彩小所乡对 0.2587) and chinese_cht's scores by 0.0058 (on the CPU)
     "japan": {"texts": {"彩小所对": "彩小所乡对"}, "score_atol": 0.051},
     "chinese_cht": {"score_atol": 0.006},
+    # en's beam decode: ids, texts and boxes equal, the beam score (exp of
+    # the mean log-prob of the best path) moved by the rec's sums: 0.0017
+    # on the CPU (tests/_torch_helpers.py)
+    "beam": {"score_atol": 0.003},
 }
 # the ten non-CJK heads' class counts, with the blank
 SCRIPT_CLASSES = (83, 98, 99, 111, 139, 147, 162, 201, 293, 298)
@@ -467,12 +491,12 @@ def kernel_parity():
 
 
 def drive(label, clip, area, reference, engine, card, spy=None, runs=("cold", "warm"),
-          matches=str.__eq__):
+          matches=str.__eq__, config=None):
     """Runs (cold, warm) of ``SubtitleExtractor(clip, area).run()`` with the
-    default config for the engine's language, the launch counts set to 0
-    just before each and read just after; every SRT must equal
-    ``reference`` (``matches(got, reference)``). Returns the last run's
-    (launches, extractor)."""
+    default config for the engine's language (or ``config``), the launch
+    counts set to 0 just before each and read just after; every SRT must
+    equal ``reference`` (``matches(got, reference)``). Returns the last
+    run's (launches, extractor)."""
     import torch
 
     from vse_tpu_torch.core.config import VseConfig
@@ -480,7 +504,7 @@ def drive(label, clip, area, reference, engine, card, spy=None, runs=("cold", "w
     from vse_tpu_torch.kernels import keyframe as k2
     from vse_tpu_torch.pipeline.extractor import SubtitleExtractor
 
-    cfg = VseConfig(language=engine.language)
+    cfg = config or VseConfig(language=engine.language)
     for run in runs:
         ex = SubtitleExtractor(clip, area, cfg, engine=engine, device="cuda")
         if spy is not None:
@@ -821,6 +845,179 @@ def fps_path(label, clip, reference, raw_ref, engine, card):
     return fps
 
 
+def accurate_phase(card, by_path):
+    """Phase 11: modes accurate and auto on the server det, each path's SRT
+    and OCR lines against the JAX references, the beam decode, and the
+    server det's device time per batch."""
+    import torch
+
+    from vse_tpu_torch.core.config import Mode, VseConfig
+    from vse_tpu_torch.pipeline import extractor as port_extractor
+    from vse_tpu_torch.pipeline import ocr_engine
+    from vse_tpu_torch.video.synth import (
+        SMOKE_FIXTURE, compose_clip, compose_frames, load_fixture, recipe_area,
+    )
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(SMOKE_FIXTURE, "reference_accurate.json"), encoding="utf-8") as f:
+        refs = json.load(f)
+    failures = []
+
+    def box_of(q):
+        return [int(q[0][0]), int(q[1][0]), int(q[0][1]), int(q[2][1])]
+
+    def check_lines(label, got, want, atol=SCORE_ATOL):
+        bad = [(g, w) for g, w in zip(got, want)
+               if g[0] != w[0] or g[2] != w[2] or max(abs(a - b) for a, b in zip(g[1], w[1])) > 2
+               or (g[1] == w[1] and abs(g[3] - w[3]) > atol)]
+        worst = max((abs(g[3] - w[3]) for g, w in zip(got, want) if g[1] == w[1]), default=0.0)
+        if bad or len(got) != len(want):
+            failures.append(f"{label}: {len(got)} lines against the JAX package's {len(want)}; "
+                            f"pairs that differ: {bad[:10]}")
+        print(f"{label}: {len(got)} OCR lines against the JAX package's {len(want)}, "
+              f"{len(bad)} differ (frame, text, box within 2 px, score within {atol}; "
+              f"max score difference on equal boxes {worst!r})", flush=True)
+
+    seen = []
+    feed = port_extractor.DetSpanTracker.feed
+    refine = port_extractor.SubtitleExtractor.refine_keyframe_spans
+    gate = port_extractor.SubtitleExtractor._gate_and_record
+
+    def keep_feed(self, frame_no, dt_box, rec_res):
+        seen.extend([frame_no, box_of(q), t, p] for q, (t, p) in zip(dt_box, rec_res))
+        return feed(self, frame_no, dt_box, rec_res)
+
+    def keep_samples(self, spans, samples):
+        seen.extend([s[1], box_of(q), t, p] for s in samples for q, (t, p) in zip(s[2], s[3]))
+        return refine(self, spans, samples)
+
+    def keep_gated(self, frame_no, dt_box, rec_res, *a, **kw):
+        seen.extend([frame_no, list(b), t, p] for b, t, p in self._gate_lines(dt_box, rec_res))
+        return gate(self, frame_no, dt_box, rec_res, *a, **kw)
+
+    hooks = {"feed": (port_extractor.DetSpanTracker, "feed", keep_feed),
+             "refine": (port_extractor.SubtitleExtractor, "refine_keyframe_spans", keep_samples),
+             "gate": (port_extractor.SubtitleExtractor, "_gate_and_record", keep_gated)}
+
+    def run_path(key, label, recipe_name, mode, engine, hook, with_area):
+        t0 = time.perf_counter()
+        bands, recipe = load_fixture(recipe=recipe_name)
+        with tempfile.TemporaryDirectory() as tmp:
+            clip = compose_clip(bands, recipe, os.path.join(tmp, f"{key}.avi"))
+            ref = refs[key]
+            cls, name, fn = hooks[hook]
+
+            def spy(ex):
+                seen.clear()
+                setattr(cls, name, fn)
+
+            try:
+                launches, ex = drive(label, clip, recipe_area(recipe) if with_area else None,
+                                     ref["srt"], engine, card, spy=spy,
+                                     config=VseConfig(language="en", mode=mode))
+            finally:
+                setattr(cls, name, {"feed": feed, "refine": refine, "gate": gate}[hook])
+        check_lines(label, list(seen), ref["lines"])
+        n = ex.n_samples
+        fb, mb = ex.config.frame_batch, engine.config.max_batch_size
+        chunks = math.ceil(n / fb) * math.ceil(fb / mb)
+        want_k2 = math.ceil(recipe["n_frames"] / 32) if mode == Mode.AUTO else 0
+        print(f"{label}: {n} frames OCRed in {chunks} chunks; launches {launches}", flush=True)
+        if launches != {"K1": chunks, "K2": want_k2} or chunks < 1:
+            failures.append(f"{label}: launches {launches}, want K1 = {chunks} and "
+                            f"K2 = {want_k2}")
+        by_path[key] = launches
+        phase(label, t0)
+
+    cfg_acc = VseConfig(language="en", mode=Mode.ACCURATE)
+    t0 = time.perf_counter()
+    engine = ocr_engine.OcrEngine("en", Mode.ACCURATE, cfg_acc, device="cuda")
+    print(f"accurate engine load: {time.perf_counter() - t0:.2f} s, det {engine.spec.det_variant}, "
+          f"rec {engine.rec_variant}", flush=True)
+    if engine.spec.det_variant != "server":
+        raise AssertionError("phase 11: mode accurate did not resolve the server det")
+    run_path("keyframe_accurate", "accurate mode, per-frame detection", "recipe.json",
+             Mode.ACCURATE, engine, "feed", True)
+    run_path("fps_short_accurate", "accurate mode, no area (fps strategy)",
+             "recipe_fps_short.json", Mode.ACCURATE, engine, "gate", False)
+
+    # the server det's device time per batch, from graph replays
+    det_ms = {}
+    with torch.inference_mode():
+        for shape in ((8, 128, 960, 3), (8, 160, 960, 3), (8, 576, 960, 3)):
+            x = torch.randn(shape, device="cuda")
+            engine.det_forward(x)
+            graph = engine.det_forward.graphs[(shape, x.dtype, x.device)][0]
+            graph.replay()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                graph.replay()
+            end.record()
+            end.synchronize()
+            det_ms[str(list(shape))] = start.elapsed_time(end) / 20
+    print(f"server det on {card}, device ms per batch (CUDA-graph replays, TF32 "
+          f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}): {json.dumps(det_ms)}", flush=True)
+    print(f"CUDA-graph pools after the accurate engine: {graph_pools_mib():.1f} MiB", flush=True)
+    del engine, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    engine = ocr_engine.OcrEngine("en", Mode.AUTO, VseConfig(language="en", mode=Mode.AUTO),
+                                  device="cuda")
+    if engine.spec.det_variant != "server":
+        raise AssertionError("phase 11: mode auto on the card did not resolve the server det")
+    run_path("keyframe_auto", "auto mode, keyframe strategy", "recipe.json", Mode.AUTO, engine,
+             "refine", True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the beam decode on band frames, with the beam's ids
+    t0 = time.perf_counter()
+    ref = refs["beam"]
+    bands, recipe = load_fixture()
+    frames = compose_frames(bands, recipe, n_frames=max(ref["frames"]) + 1)
+    y0, y1 = ref["band"]
+    ids = []
+    beam_fn = ocr_engine.ctc_prefix_beam_decode
+
+    def keep_ids(*a, **kw):
+        out = beam_fn(*a, **kw)
+        ids.append([int(i) for i in out[0]])
+        return out
+
+    beam = ocr_engine.OcrEngine("en", Mode.ACCURATE, cfg_acc, device="cuda", decode="beam")
+    ocr_engine.ctc_prefix_beam_decode = keep_ids
+    try:
+        res = beam.predict_batch(frames[ref["frames"], y0:y1].copy(), origin=(y0, 0))
+        ids.clear()
+        t1 = time.perf_counter()
+        res = beam.predict_batch(frames[ref["frames"], y0:y1].copy(), origin=(y0, 0))
+        beam_s = time.perf_counter() - t1
+    finally:
+        ocr_engine.ctc_prefix_beam_decode = beam_fn
+    flat = lambda recs: [[i, *line] for i, r in enumerate(recs) for line in r]  # noqa: E731
+    got = [[[box_of(q), t, p] for q, (t, p) in zip(d, r)] for d, r in res]
+    if ids != ref["ids"]:
+        failures.append(f"beam: ids {ids} against the JAX beam's {ref['ids']}")
+    check_lines("beam decode, 8 band frames", flat(got), flat(ref["records"]),
+                FAULT_11["beam"]["score_atol"])
+    print(f"beam decode: ids {'equal' if ids == ref['ids'] else 'differ'}; warm pass "
+          f"{beam_s:.4f} s on {card}", flush=True)
+    del beam
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("beam decode", t0)
+    if failures:
+        raise AssertionError("phase 11:\n" + "\n".join(failures))
+    phase("accurate and auto modes", t_phase)
+    return det_ms
+
+
 def sync_phase(card, by_path):
     """Phase 10: the sync re-timer's keyframe logs through K2's gray form,
     then two re-timings (numpy and device matcher), each output equal to
@@ -1028,6 +1225,7 @@ def main() -> int:
     phase("kernel parity", t0)
 
     launches, by_path = main_path(card)
+    det_ms = accurate_phase(card, by_path)
     rows["K2_sync_gray"] = sync_phase(card, by_path)
     rows["K2"]["max_abs_err"] = max(rows["K2"]["max_abs_err"], rows["K2_sync_gray"]["max_abs_err"])
     launches = {k: sum(p[k] for p in by_path.values()) for k in ("K1", "K2")}
@@ -1042,11 +1240,13 @@ def main() -> int:
     # the paths whose launches run at each timed row's shape: en's C = 69
     # and 1280-wide band (phases 4-5 and 9), ch's and chinese_cht's C =
     # 21,060, japan's 21,249, ch's 400-wide band
-    en_paths = ("keyframe", "fps", "fps_short", "many_keyframe", "many_fps", "service")
+    en_paths = ("keyframe", "fps", "fps_short", "many_keyframe", "many_fps", "service",
+                "keyframe_accurate", "fps_short_accurate", "keyframe_auto")
     ch_paths = ("ch_keyframe", "ch_fps_short")
     row_paths = {"K1": en_paths, "K1_c293": ("latin",),
                  "K1_c21060": ch_paths + ("chinese_cht",), "K1_c21249": ("japan",),
-                 "K2": ("keyframe", "many_keyframe", "service"), "K2_ch_area": ch_paths,
+                 "K2": ("keyframe", "many_keyframe", "service", "keyframe_auto"),
+                 "K2_ch_area": ch_paths,
                  "K2_sync_gray": ("sync_keyframes_src", "sync_keyframes_dst")}
     areas = {f: load_script_fixture(f)[1]["area"] for f in SCRIPT_FAMILIES + CJK_FAMILIES}
     for key in rows:
@@ -1082,6 +1282,7 @@ def main() -> int:
             entry["at_scripts"] = {k: v for k, v in rows.items() if k.startswith("K2_w")}
             entry["at_sync_gray"] = rows["K2_sync_gray"]
         kernels.append(entry)
+    print(f"server det device ms per batch: {json.dumps(det_ms)}", flush=True)
     print(f"[phase] total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

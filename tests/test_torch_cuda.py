@@ -462,3 +462,47 @@ def test_service_queue_on_the_card_equals_single_runs(cuda, tmp_path):
         with open(ex.run(), encoding="utf-8") as f, open(t.srt_path, encoding="utf-8") as g:
             want = f.read()
             assert g.read() == want and want.count("-->") == 1
+
+
+def test_graphed_server_det_equals_its_eager_bf16_forward(cuda):
+    """The server det (``DBDetector("server")`` on the exported weights,
+    emulated) replayed as a CUDA graph equals its eager ``forward_bf16``
+    bit for bit, at two canvases and back."""
+    from vse_tpu_torch.models import bf16 as B16
+    from vse_tpu_torch.models.db_detector import DBDetector
+    from vse_tpu_torch.models.graphed import GraphedForward
+    from vse_tpu_torch.weights import load_det_server
+
+    model = DBDetector("server")
+    model.load_state_dict(load_det_server())
+    B16.emulate(model).to(cuda).eval()
+    fwd = GraphedForward(model)
+    rng = np.random.default_rng(1)
+    with torch.inference_mode():
+        for shape in [(8, 160, 960, 3), (2, 96, 320, 3), (8, 160, 960, 3)]:
+            x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+            assert torch.equal(fwd(x), model(x))
+    assert len(fwd.graphs) == 2
+
+
+def test_per_frame_detection_launches_k1_once_a_chunk(cuda, tmp_path):
+    """Mode accurate with an area on 16 frames of the smoke clip: every
+    frame through the server det, and one K1 launch for each OCR chunk
+    (two batches of ``frame_batch`` 8, each one chunk), K2 never."""
+    from vse_tpu_torch.core.config import Mode, VseConfig
+    from vse_tpu_torch.pipeline.extractor import SubtitleExtractor
+    from vse_tpu_torch.video.decode import InMemoryVideo
+    from vse_tpu_torch.video.synth import compose_frames, load_fixture, recipe_area
+
+    bands, recipe = load_fixture()
+    frames = compose_frames(bands, recipe, n_frames=40)[24:40]
+    clip = InMemoryVideo(np.ascontiguousarray(frames), 25.0, str(tmp_path / "acc.avi"))
+    cfg = VseConfig(language="en", mode=Mode.ACCURATE)
+    ex = SubtitleExtractor(clip, recipe_area(recipe), cfg, device="cuda")
+    assert ex.engine.spec.det_variant == "server"
+    k1.launches = k2.launches = 0
+    ex.append_output = lambda *a: None
+    ex.run()
+    chunks = -(-16 // cfg.frame_batch) * -(-cfg.frame_batch // cfg.max_batch_size)
+    assert (k1.launches, k2.launches) == (chunks, 0) and ex.n_samples == 16
+    assert ex.raw_records and all(r.text for r in ex.raw_records)

@@ -13,6 +13,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
+from _torch_helpers import jax_full_batches
 from vse_tpu.core.config import Mode as JaxMode
 from vse_tpu.core.config import VseConfig as JaxConfig
 from vse_tpu.core.subtitle_area import SubtitleArea as JaxArea
@@ -80,7 +81,8 @@ def _run_both(tmp_path, with_area):
                        JaxConfig(mode=JaxMode.FAST, **kw), engine=ScriptedCjkEngine())
     for ex in (port, jax):
         ex.append_output = lambda *a: None
-        ex.run()
+        with jax_full_batches():
+            ex.run()
     return dirs, port, jax
 
 
@@ -141,3 +143,62 @@ def test_capture_frame_with_subtitle_area_matches_jax(tmp_path):
     want = jax.capture_frame_with_subtitle_area(str(tmp_path / "jax.jpg"))
     assert np.array_equal(cv2.imread(got), cv2.imread(want))
     assert port.capture_frame_with_subtitle_area() == str(tmp_path / "sub_area.jpg")
+
+
+def test_fault_5_a_short_jax_batch_moves_the_first_cue_end(tmp_path, monkeypatch):
+    """ROADMAP faults 5 and 13, deterministically: the JAX keyframe scan on
+    full 32-frame batches ends cue 1 at 00:00:01,960, as the port does; the
+    same frames re-batched so that one batch starts at frame index 50 (the
+    clip's first cue change; each batch start zeroes a temporal diff) end
+    it at 00:00:02,200 and start cue 2 at 00:00:02,240 instead of
+    00:00:02,000, which is what a native-ring scan that popped a short
+    batch there wrote."""
+    from vse_tpu.video import decode as jax_decode
+
+    path = str(tmp_path / "v.avi")
+    write_clip(path)
+
+    def jax_cues():
+        ex = JaxExtractor(path, JaxArea(*AREA), JaxConfig(
+            mode=JaxMode.FAST, language="ch", word_segmentation=False),
+            engine=ScriptedCjkEngine())
+        ex.append_output = lambda *a: None
+        with jax_full_batches():
+            with open(ex.run(), encoding="utf-8") as f:
+                srt = f.read()
+        return [line for line in srt.splitlines() if "-->" in line]
+
+    port = SubtitleExtractor(path, SubtitleArea(*AREA), VseConfig(
+        language="ch", word_segmentation=False), engine=ScriptedCjkEngine(), device="cpu")
+    port.append_output = lambda *a: None
+    with open(port.run(), encoding="utf-8") as f:
+        port_cues = [line for line in f.read().splitlines() if "-->" in line]
+    full = jax_cues()
+    assert full == port_cues
+    assert full[0].endswith("--> 00:00:01,960") and full[1].startswith("00:00:02,000")
+
+    queue_iter = jax_decode.FrameStream.__iter__
+
+    def cut_at_50(self):
+        """The queue path's frames, re-batched with a batch start at 50."""
+        rows = [(b.frames[i], b.frame_nos[i], b.ts_ms[i])
+                for b in queue_iter(self) for i in range(int(b.valid.sum()))]
+        starts = sorted({0, 50} | set(range(0, len(rows), self.batch_size)))
+        cuts = [s for s in starts if s < len(rows)] + [len(rows)]
+        for a, z in zip(cuts, cuts[1:]):
+            while a < z:
+                n = min(self.batch_size, z - a)
+                frames = np.zeros((self.batch_size,) + rows[0][0].shape, np.uint8)
+                nos = np.zeros((self.batch_size,), np.int64)
+                ts = np.zeros((self.batch_size,), np.float64)
+                valid = np.zeros((self.batch_size,), bool)
+                for i in range(n):
+                    frames[i], nos[i], ts[i] = rows[a + i]
+                    valid[i] = True
+                yield jax_decode.FrameBatch(frames, nos, ts, valid)
+                a += n
+
+    monkeypatch.setattr(jax_decode.FrameStream, "__iter__", cut_at_50)
+    cut = jax_cues()
+    assert cut[0].endswith("--> 00:00:02,200") and cut[1].startswith("00:00:02,240")
+    assert cut[2:] == full[2:]

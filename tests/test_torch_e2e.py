@@ -21,6 +21,7 @@ import torch
 
 cv2 = pytest.importorskip("cv2")
 
+from _torch_helpers import jax_full_batches
 from vse_tpu.core.config import VseConfig as JaxConfig
 from vse_tpu.core.subtitle_area import SubtitleArea as JaxArea
 from vse_tpu.pipeline.extractor import SubtitleExtractor as JaxExtractor
@@ -58,7 +59,7 @@ def jax_run(clip):
     path, _, recipe = clip
     ex = JaxExtractor(path, JaxArea(*recipe["area"]),
                       JaxConfig(language="en", word_segmentation=False))
-    with open(ex.run(), encoding="utf-8") as f:
+    with jax_full_batches(), open(ex.run(), encoding="utf-8") as f:
         return f.read(), ex.engine
 
 
@@ -156,5 +157,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(clip):
         OcrEngine(language="en")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SubtitleExtractor(path, recipe_area(recipe), VseConfig(word_segmentation=False))
-    with pytest.raises(NotImplementedError):  # accurate mode is not ported
-        SubtitleExtractor(path, recipe_area(recipe), VseConfig(mode="accurate"), device="cpu")
+    for mode in ("auto", "accurate"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            SubtitleExtractor(path, recipe_area(recipe), VseConfig(mode=mode)).engine
+        # every mode runs on the CPU when it is asked for
+        ex = SubtitleExtractor(path, recipe_area(recipe), VseConfig(mode=mode), device="cpu")
+        assert ex.config.mode.value == mode and ex.device.type == "cpu"

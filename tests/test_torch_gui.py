@@ -26,6 +26,7 @@ cv2 = pytest.importorskip("cv2")
 from test_torch_service import FakeEngine as PortFakeEngine
 from tests.test_extractor_e2e import FakeEngine as JaxFakeEngine
 from tests.test_extractor_e2e import write_video
+from _torch_helpers import jax_full_batches
 from vse_tpu.gui.server import GuiServer as JaxGuiServer
 from vse_tpu_torch.gui import version as vs
 from vse_tpu_torch.gui.events import EventBus
@@ -181,19 +182,20 @@ def test_run_extraction_through_api_equals_the_jax_gui(server, jax_server, video
     server.service._engine = PortFakeEngine(TEXTS)
     jax_server.service._engine = JaxFakeEngine(TEXTS)
     srts = []
-    for srv in (server, jax_server):
-        port = srv.address[1]
-        out = str(tmp_path / f"out{port}.srt")
-        _post(port, "/api/tasks", {"video_path": video, "area": "0.8,1.0,0.0,1.0",
-                                   "output_path": out})
-        assert _post(port, "/api/run", {})[0]["started"] is True
-        task = drain(port)
-        assert task["status"] == "completed", task
-        with open(out, "rb") as f:
-            srts.append(f.read())
-        kinds = {e["kind"] for e in _get(port, "/api/events?since=0&timeout=0.2")["events"]}
-        assert {"finish", "progress", "run_started"} <= kinds
-        assert _post(port, "/api/run", {})[0]["started"] is False
+    with jax_full_batches():
+        for srv in (server, jax_server):
+            port = srv.address[1]
+            out = str(tmp_path / f"out{port}.srt")
+            _post(port, "/api/tasks", {"video_path": video, "area": "0.8,1.0,0.0,1.0",
+                                       "output_path": out})
+            assert _post(port, "/api/run", {})[0]["started"] is True
+            task = drain(port)
+            assert task["status"] == "completed", task
+            with open(out, "rb") as f:
+                srts.append(f.read())
+            kinds = {e["kind"] for e in _get(port, "/api/events?since=0&timeout=0.2")["events"]}
+            assert {"finish", "progress", "run_started"} <= kinds
+            assert _post(port, "/api/run", {})[0]["started"] is False
     assert srts[0] == srts[1] and srts[0].count(b"-->") == 2
 
 

@@ -164,3 +164,29 @@ def test_k2_geometry_refuses_a_grid_too_tall():
     assert g.run == 8 and g.n_runs == 65535
     with pytest.raises(ValueError, match="at most"):
         k2.launch_geometry(65535 * 8 + 1, 1, 1)
+
+
+@pytest.mark.parametrize("n,t,c", [(8, 80, 69), (64, 80, 293), (2, 6, 21249)])
+def test_k1_plain_decode_bits_do_not_depend_on_threads_or_offset(n, t, c):
+    """ROADMAP fault 14: the plain decode's sums over C and over T have one
+    order, so the same f32 logits decode to the same bits at 1, 2 and 6
+    intra-op threads, and from a copy that starts at another storage
+    offset (the f16 logits' f32 values, as in the check above)."""
+    x = torch.from_numpy(k1_logits(n, t, c, seed=c + t)).half().float()
+    threads = torch.get_num_threads()
+    outs = []
+    try:
+        for k in (1, 2, 6):
+            torch.set_num_threads(k)
+            outs.append(k1.ctc_greedy_decode(x))
+            for off in (1, 3, 17):
+                buf = torch.empty(x.numel() + off)
+                buf[off:] = x.reshape(-1)
+                outs.append(k1.ctc_greedy_decode(buf[off:].view(x.shape)))
+    finally:
+        torch.set_num_threads(threads)
+    for ids, mask, scores in outs[1:]:
+        assert torch.equal(ids, outs[0][0]) and torch.equal(mask, outs[0][1])
+        assert torch.equal(scores, outs[0][2])
+    _, probs = k1.argmax_lse_plain(x)
+    assert torch.equal(k1.tree_sum(probs), k1.tree_sum(probs.clone()))

@@ -11,13 +11,13 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from _torch_helpers import SCORE_ATOL, two_threads  # noqa: F401
+from _torch_helpers import SCORE_ATOL, jax_full_batches, two_threads  # noqa: F401
 from vse_tpu.core.config import VseConfig as JaxConfig
 from vse_tpu.core.subtitle_area import SubtitleArea as JaxArea
 from vse_tpu.pipeline import extractor as jax_extractor
 from vse_tpu.pipeline import multistream as jax_multistream
 from vse_tpu.video.decode import FrameStream as JaxStream
-from vse_tpu_torch.core.config import Mode, VseConfig
+from vse_tpu_torch.core.config import VseConfig
 from vse_tpu_torch.core.subtitle_area import SubtitleArea
 from vse_tpu_torch.pipeline import extractor
 from vse_tpu_torch.pipeline import multistream
@@ -87,9 +87,10 @@ def run_both(monkeypatch, tmp_path, clips, names, areas):
                 [SubtitleArea(*a) if a else None for a in areas],
                 VseConfig(language="en"), output_paths=srts, device="cpu")
         else:
-            res = jax_multistream.extract_many(
-                [clips[n] for n in names], [JaxArea(*a) if a else None for a in areas],
-                JaxConfig(language="en"), output_paths=srts)
+            with jax_full_batches():
+                res = jax_multistream.extract_many(
+                    [clips[n] for n in names], [JaxArea(*a) if a else None for a in areas],
+                    JaxConfig(language="en"), output_paths=srts)
         assert list(res.values()) == srts
         got = {}
         for n, s in zip(names, srts):
@@ -217,10 +218,3 @@ def test_extract_many_fps_routes_results():
         nos = [r[0] for r in out[p]]
         assert nos == list(range(1, n + 1, 8))  # 24 fps // 3 a second
         assert [r[2][0][0] for r in out[p]] == [f"v{v}f{k}" for k in nos]
-
-
-@pytest.mark.parametrize("mode", ["auto", "accurate"])
-def test_extract_many_raises_for_modes_not_ported(clips, mode):
-    with pytest.raises(NotImplementedError, match="det_server"):
-        multistream.extract_many([clips["a"]], [SubtitleArea(*AREA)],
-                                 VseConfig(language="en", mode=Mode(mode)), device="cpu")

@@ -16,6 +16,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
+from _torch_helpers import jax_full_batches
 from vse_tpu.core.config import VseConfig as JaxConfig
 from vse_tpu.core.subtitle_area import SubtitleArea as JaxArea
 from vse_tpu.pipeline.extractor import SubtitleExtractor as JaxExtractor
@@ -46,7 +47,7 @@ def jax_srt(clip):
     path, recipe = clip
     ex = JaxExtractor(path, JaxArea(*recipe["area"]), JaxConfig(language="en"))
     ex.subtitle_output_path = path[: -len(".avi")] + ".jax.srt"
-    with open(ex.run(), encoding="utf-8") as f:
+    with jax_full_batches(), open(ex.run(), encoding="utf-8") as f:
         return f.read()
 
 

@@ -1,4 +1,4 @@
-"""Export a trained flax rec head for the PyTorch port.
+"""Export a trained flax rec head, or the server det, for the PyTorch port.
 
 Reads ``checkpoints/<head>`` (orbax) through ``vse_tpu.core.registry`` and
 writes, for ``vse_tpu_torch``, which reads neither orbax nor flax:
@@ -26,6 +26,18 @@ The port maps the arrays onto its CRNN at load
 Every head but en's is exported the bf16 way: ch and the ten non-CJK
 families (``rec_<family>_mobile`` for latin, cyrillic, devanagari, arabic,
 korean, el, ta, te, ka and th, 0.84-0.87 MB each).
+
+``--head det_server`` exports the server DB detector
+(``vse_tpu.models.db_detector.DBDetector(variant="server")``, ResNet-50 and
+FPN 256) the same way:
+
+    JAX_PLATFORMS=cpu python tools/export_torch_weights.py --head det_server --bf16
+
+Its orbax checkpoint holds the training head ``head_thresh`` too, and its
+arrays were saved from a TPU; it is restored into the abstract variables of
+the training-output model placed on the CPU, and only what inference reads
+is written (``head_prob``, not ``head_thresh``). The npz is compressed when
+that saves at least 5%.
 """
 
 from __future__ import annotations
@@ -55,10 +67,43 @@ def stored_in_bf16(key: str) -> bool:
     return key.startswith("params/") and "/BatchNorm_" not in key
 
 
+def restore_det_server(ckpt: str) -> dict:
+    """The server det's inference variables ({"params", "batch_stats"},
+    ``head_thresh`` dropped), restored on the CPU."""
+    import jax
+    import jax.numpy as jnp
+
+    from vse_tpu.core.registry import load_params
+    from vse_tpu.models.db_detector import DBDetector
+
+    cpu = jax.sharding.SingleDeviceSharding(jax.devices("cpu")[0])
+    abstract = jax.eval_shape(DBDetector(variant="server", train_outputs=True).init,
+                              jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
+    like = jax.tree_util.tree_map(
+        lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype, sharding=cpu), abstract)
+    variables = load_params(ckpt, like=like)
+    return {col: {k: v for k, v in tree.items() if k != "head_thresh"}
+            for col, tree in variables.items()}
+
+
+def save_npz(path: str, flat: dict) -> None:
+    """``np.savez_compressed`` when it saves at least 5%, else ``np.savez``."""
+    import io
+
+    import numpy as np
+
+    packed = io.BytesIO()
+    np.savez_compressed(packed, **flat)
+    plain = sum(v.nbytes for v in flat.values())
+    with open(path, "wb") as f:
+        if packed.tell() <= 0.95 * plain:
+            f.write(packed.getvalue())
+        else:
+            np.savez(f, **flat)
+
+
 def export(head: str, out_dir: str, bf16: bool = False) -> str:
     import jax.numpy as jnp
-    import numpy as np
-    from flax.traverse_util import flatten_dict
 
     from vse_tpu.core.registry import init_or_load, load_meta, models_root
     from vse_tpu.models.crnn import CRNNRecognizer
@@ -67,6 +112,9 @@ def export(head: str, out_dir: str, bf16: bool = False) -> str:
     meta = load_meta(ckpt)
     if meta is None:
         raise SystemExit(f"{ckpt} has no vse_meta.json")
+    if head == "det_server":
+        variables = restore_det_server(ckpt)
+        return write(head, out_dir, variables, meta, bf16)
     variant = meta.get("variant", "mobile")
     model = CRNNRecognizer(
         vocab_size=int(meta["vocab_size"]), variant=variant,
@@ -76,6 +124,14 @@ def export(head: str, out_dir: str, bf16: bool = False) -> str:
     variables, loaded = init_or_load(model, jnp.zeros((1, 48, 320, 3)), ckpt)
     if not loaded:
         raise SystemExit(f"could not restore {ckpt}")
+    return write(head, out_dir, variables, meta, bf16)
+
+
+def write(head: str, out_dir: str, variables, meta: dict, bf16: bool) -> str:
+    """The flattened variables as ``<head>.npz`` and the meta beside it."""
+    import numpy as np
+    from flax.traverse_util import flatten_dict
+
     flat = {
         "/".join(k): np.asarray(v, np.float32)
         for k, v in flatten_dict(variables).items()
@@ -85,7 +141,7 @@ def export(head: str, out_dir: str, bf16: bool = False) -> str:
                 (bf16_bits(v) if stored_in_bf16(k) else v) for k, v in flat.items()}
     os.makedirs(out_dir, exist_ok=True)
     npz = os.path.join(out_dir, f"{head}.npz")
-    np.savez_compressed(npz, **flat)
+    save_npz(npz, flat)
     with open(os.path.join(out_dir, f"{head}.vse_meta.json"), "w", encoding="utf-8") as f:
         json.dump(meta, f, sort_keys=True)
         f.write("\n")

@@ -120,12 +120,41 @@ and two 20 s 720p clips with scene cuts, the second with a 3.2 s insert):
                           numpy matcher and once with the device matcher
                           (``VSE_SYNC_DEVICE=1``, XLA's FFT on the CPU)
 
+With ``--accurate``, the references of modes accurate and auto, made with
+the JAX package's engine given the server det's weights (restored from
+``checkpoints/det_server`` by ``tools/export_torch_weights.py``; the JAX
+registry's own restore of that checkpoint fails and falls back to the
+mobile det, ROADMAP fault 15), default config for en:
+
+  reference_accurate.json ``{"keyframe_accurate", "keyframe_auto",
+                          "fps_short_accurate": {"srt", "lines"},
+                          "beam": {"frames", "band", "records", "ids"},
+                          "small": {"recipe", "srt", "lines", "raw",
+                          "many"}}``: ``extract CLIP --area 600,704,0,1280
+                          --mode accurate`` on ``recipe.json`` (lines: every
+                          OCR line of every frame the tracker was fed),
+                          ``--mode auto`` on the same clip with the server
+                          det (accelerated; lines: every keyframe sample's),
+                          ``--mode accurate`` without an area on
+                          ``recipe_fps_short.json`` (lines: every OCR line
+                          before the filters); ``OcrEngine(mode=accurate,
+                          decode="beam")`` on 8 band frames of the keyframe
+                          clip (each frame's [box, text, score] lines and
+                          the beam's ids); and the CPU tests' small accurate
+                          clip (``SMALL_RECIPE``: 24 frames of 256 x 64, the
+                          sign and the watermark as two cues, two boxes a
+                          frame), its SRT, tracker lines and raw records
+  det_server_probe.npz    a [1, 64, 320] crop of the keyframe clip, the
+                          JAX server det's bf16 probability map of it and
+                          the boxes and valid mask of its postprocess
+
 Band files that exist are reused as committed (they are rendered only when
 they are missing; a family whose bands are missing from
 ``bands_scripts.npz`` is drawn and added). Run it with JAX on the CPU (it needs PIL, OpenCV and the
 en and ch rec heads):
 
     JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py [--language ch|<family>] [--many]
+    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py --accurate
 """
 
 from __future__ import annotations
@@ -141,6 +170,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 OUT = os.path.join(ROOT, "vse_tpu_torch", "assets", "smoke")
 FONT = "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf"
@@ -208,6 +238,22 @@ HANGUL_SIZE = 40
 # the smallest full-width text-cell share (of the scan's 4 x 8 cells) a cue
 # must reach for the area to stay 1280 px wide; the vote is at 2%
 TEXT_CELL_MARGIN = 0.03
+# the CPU tests' accurate clip: the sign and the watermark of bands_fps.npz
+# as two cues of 7 frames, 6 frames apart (over the tracker's 5-frame
+# grace at 25 fps), in a frame as small as the det's 32-pixel canvas steps
+# allow (the area's upload band is the whole frame: a 64 x 256 canvas); its
+# config keeps two boxes a frame, so each OCR chunk reads 16 crops, not 64
+SMALL_RECIPE = {
+    "width": 256, "height": 64, "fps": FPS, "n_frames": 24, "background": list(BG),
+    "band_origin": [8, 8], "band_files": ["bands_fps.npz"], "area": [4, 60, 0, 256],
+    "cues": [{"band": "scene", "text": "CITY CAFE", "first": 2, "last": 8, "origin": [8, 8]},
+             {"band": "watermark", "text": "VSE TV", "first": 15, "last": 21,
+              "origin": [8, 48]}],
+}
+SMALL_CONFIG = {"max_boxes_per_frame": 2}
+# the beam records' frames (0-based) of the keyframe clip, and its upload band
+BEAM_FRAMES = [10, 30, 60, 120, 200, 250, 380, 420]
+BEAM_BAND = (568, 720)
 EXTRAS = [
     ("watermark", "VSE TV", (160, 48), [24, 1080], 1, N),
     ("scene", "CITY CAFE", (240, 48), [330, 520], 201, 240),
@@ -441,10 +487,12 @@ def jax_fps_records(frames: np.ndarray, out_name: str, language: str = "en") -> 
           f"{sorted(set(r[2] for r in records))}")
 
 
-def write_lossless(frames: np.ndarray, path: str) -> None:
+def write_lossless(frames: np.ndarray, path: str, recipe: dict = None) -> None:
     import cv2
 
-    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"FFV1"), float(FPS), (W, H))
+    h, w = frames.shape[1:3]
+    fps = float(recipe["fps"]) if recipe else float(FPS)
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"FFV1"), fps, (w, h))
     for f in frames:
         vw.write(np.ascontiguousarray(f[:, :, ::-1]))
     vw.release()
@@ -587,6 +635,164 @@ def main_sync() -> None:
           f"{ref['srt'] == ref['srt_device']}")
 
 
+def box_of(quad) -> list:
+    return [int(quad[0][0]), int(quad[1][0]), int(quad[0][1]), int(quad[2][1])]
+
+
+def jax_server_engine(mode: str, decode: str = "greedy", **config):
+    """The JAX engine for en in ``mode`` (accelerated) with ``config``'s
+    fields, given the server det's restored weights when the mode resolves
+    to it."""
+    from export_torch_weights import restore_det_server
+    from vse_tpu.core.config import Mode, VseConfig
+    from vse_tpu.core.registry import models_root, resolve
+    from vse_tpu.pipeline.ocr_engine import OcrEngine
+
+    mode = Mode(mode)
+    params = None
+    if resolve("en", mode, True).det_variant == "server":
+        params = restore_det_server(os.path.join(models_root(), "det_server"))
+    return OcrEngine(language="en", mode=mode,
+                     config=VseConfig(language="en", mode=mode, **config),
+                     det_params=params, accelerated=True, decode=decode)
+
+
+def jax_mode_run(frames: np.ndarray, recipe: dict, area, mode: str, engine, hook: str,
+                 **config):
+    """(SRT, lines, raw records) of the JAX extractor in ``mode`` on the
+    clip with ``area`` (or none), the default config for en (with
+    ``config``'s fields), its stream on full batches. ``hook`` names the lines kept: "feed" (every line of every
+    frame the accurate tracker is fed), "refine" (every keyframe sample's)
+    or "gate" (every line recorded, with its score, before the filters)."""
+    from vse_tpu.core.config import Mode, VseConfig
+    from vse_tpu.core.subtitle_area import SubtitleArea
+    from vse_tpu.pipeline import extractor as jx
+    from vse_tpu.video import decode
+
+    lines = []
+    saved = {name: getattr(cls, name) for cls, name in (
+        (jx.DetSpanTracker, "feed"), (jx.SubtitleExtractor, "refine_keyframe_spans"),
+        (jx.SubtitleExtractor, "_gate_and_record"))}
+
+    def feed(self, frame_no, dt_box, rec_res):
+        lines.extend([frame_no, box_of(q), t, float(p)] for q, (t, p) in zip(dt_box, rec_res))
+        return saved["feed"](self, frame_no, dt_box, rec_res)
+
+    def refine(self, spans, samples):
+        lines.extend([int(s[1]), box_of(q), t, float(p)]
+                     for s in samples for q, (t, p) in zip(s[2], s[3]))
+        return saved["refine_keyframe_spans"](self, spans, samples)
+
+    def gate(self, frame_no, dt_box, rec_res, *a, **kw):
+        lines.extend([frame_no, list(b), t, float(p)] for b, t, p in self._gate_lines(dt_box, rec_res))
+        return saved["_gate_and_record"](self, frame_no, dt_box, rec_res, *a, **kw)
+
+    native = decode.native_available
+    decode.native_available = lambda: False
+    if hook == "feed":
+        jx.DetSpanTracker.feed = feed
+    elif hook == "refine":
+        jx.SubtitleExtractor.refine_keyframe_spans = refine
+    else:
+        jx.SubtitleExtractor._gate_and_record = gate
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            clip = os.path.join(tmp, "clip.avi")
+            write_lossless(frames, clip, recipe)
+            ex = jx.SubtitleExtractor(clip, SubtitleArea(*area) if area else None,
+                                      VseConfig(language="en", mode=Mode(mode), **config),
+                                      engine=engine)
+            with open(ex.run(), encoding="utf-8") as f:
+                srt = f.read()
+            raw = [[r.frame_no, list(r.coord), r.text] for r in ex.raw_records]
+    finally:
+        decode.native_available = native
+        jx.DetSpanTracker.feed = saved["feed"]
+        jx.SubtitleExtractor.refine_keyframe_spans = saved["refine_keyframe_spans"]
+        jx.SubtitleExtractor._gate_and_record = saved["_gate_and_record"]
+    print(f"--- {mode}, area {area}: {len(lines)} lines\n{srt}")
+    return srt, lines, raw
+
+
+def main_accurate() -> None:
+    import jax
+    import jax.numpy as jnp
+
+    from export_torch_weights import restore_det_server
+    from vse_tpu.core.registry import models_root
+    from vse_tpu.models.db_detector import DBDetector
+    from vse_tpu.ops import ctc
+    from vse_tpu.ops.db_postprocess import db_postprocess
+    from vse_tpu.ops.image import normalize_det
+    from vse_tpu_torch.video.synth import compose_frames, load_fixture
+
+    refs = {}
+    accurate = jax_server_engine("accurate")
+    bands, recipe = load_fixture()
+    frames = compose_frames(bands, recipe)
+    srt, lines, _ = jax_mode_run(frames, recipe, recipe["area"], "accurate", accurate, "feed")
+    refs["keyframe_accurate"] = {"srt": srt, "lines": lines}
+    srt, lines, _ = jax_mode_run(frames, recipe, recipe["area"], "auto",
+                                 jax_server_engine("auto"), "refine")
+    refs["keyframe_auto"] = {"srt": srt, "lines": lines}
+
+    # the beam decode on band frames, with the beam's ids
+    beam = jax_server_engine("accurate", decode="beam")
+    ids = []
+    beam_fn = ctc.ctc_prefix_beam_decode
+
+    def keep_ids(*a, **kw):
+        out = beam_fn(*a, **kw)
+        ids.append([int(i) for i in out[0]])
+        return out
+
+    ctc.ctc_prefix_beam_decode = keep_ids
+    try:
+        y0, y1 = BEAM_BAND
+        res = beam.predict_batch(np.ascontiguousarray(frames[BEAM_FRAMES, y0:y1]), origin=(y0, 0))
+    finally:
+        ctc.ctc_prefix_beam_decode = beam_fn
+    refs["beam"] = {"frames": BEAM_FRAMES, "band": list(BEAM_BAND), "ids": ids, "records": [
+        [[box_of(q), t, float(p)] for q, (t, p) in zip(dt_box, rec_res)] for dt_box, rec_res in res]}
+    print(f"--- beam: {refs['beam']['records']}")
+
+    # the det alone on a small crop, with the real weights
+    probe = np.ascontiguousarray(frames[40:41, 600:664, 300:620])
+    variables = restore_det_server(os.path.join(models_root(), "det_server"))
+    prob = jax.jit(DBDetector(variant="server").apply)(variables, normalize_det(jnp.asarray(probe)))
+    boxes, _, valid = db_postprocess(prob, max_boxes=8, pool=8, num_sweeps=2)
+    np.savez_compressed(os.path.join(OUT, "det_server_probe.npz"), frames=probe,
+                        prob=np.asarray(prob, np.float32), boxes=np.asarray(boxes),
+                        valid=np.asarray(valid))
+    print(f"--- det probe: {int(np.asarray(valid).sum())} boxes {np.asarray(boxes)[np.asarray(valid)]}")
+    del frames
+
+    bands, recipe = load_fixture(recipe="recipe_fps_short.json")
+    frames = compose_frames(bands, recipe)
+    srt, lines, _ = jax_mode_run(frames, recipe, None, "accurate", accurate, "gate")
+    refs["fps_short_accurate"] = {"srt": srt, "lines": lines}
+    del frames
+    refs["small"] = small_refs()
+    with open(os.path.join(OUT, "reference_accurate.json"), "w", encoding="utf-8") as f:
+        json.dump(refs, f, ensure_ascii=False)
+        f.write("\n")
+
+
+def small_refs() -> dict:
+    """The small accurate clip's references (``SMALL_RECIPE``, config
+    ``SMALL_CONFIG``): its SRT, tracker lines and raw records."""
+    from vse_tpu_torch.video.synth import compose_frames, load_fixture
+
+    bands = load_fixture(recipe="recipe_fps.json")[0]
+    small = compose_frames(bands, SMALL_RECIPE)
+    accurate = jax_server_engine("accurate", **SMALL_CONFIG)
+    srt, lines, raw = jax_mode_run(small, SMALL_RECIPE, SMALL_RECIPE["area"], "accurate",
+                                   accurate, "feed", **SMALL_CONFIG)
+    print(f"--- small: {len(lines)} lines\n{srt}")
+    return {"recipe": SMALL_RECIPE, "config": SMALL_CONFIG, "srt": srt, "lines": lines,
+            "raw": raw}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--language", default="en",
@@ -595,8 +801,13 @@ def main() -> None:
                     help="write the JAX extract_many references instead")
     ap.add_argument("--sync", action="store_true",
                     help="write the sync phase's references instead")
+    ap.add_argument("--accurate", action="store_true",
+                    help="write the accurate and auto modes' references instead")
     args = ap.parse_args()
     os.makedirs(OUT, exist_ok=True)
+    if args.accurate:
+        main_accurate()
+        return
     if args.sync:
         main_sync()
         return

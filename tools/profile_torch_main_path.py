@@ -2,10 +2,13 @@
 """Profile one warm run of one of the port's paths on one CUDA card.
 
     python3 tools/profile_torch_main_path.py [--path keyframe|fps] \\
-        [--language en|ch|japan|chinese_cht] [--out TRACE.json]
+        [--language en|ch|japan|chinese_cht] [--mode fast|auto|accurate] \\
+        [--out TRACE.json]
 
-Drives ``SubtitleExtractor.run()`` with the default config (mode fast,
-word segmentation on) for ``--language`` (default en) on a smoke clip of
+Drives ``SubtitleExtractor.run()`` with the default config (word
+segmentation on) in ``--mode`` (default fast; accurate with an area runs
+per-frame detection, auto the keyframe scan with the server det, both on
+the server det) for ``--language`` (default en) on a smoke clip of
 ``vse_tpu_torch/assets/smoke`` (20 s of 1280x720 at 25 fps, composed in
 memory): ``keyframe`` (default) the clip with a subtitle area (``extract
 --area``: ``recipe.json``, for ch ``recipe_ch.json``), ``fps`` a no-area
@@ -64,11 +67,14 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=["keyframe", "fps"], default="keyframe")
     ap.add_argument("--language", choices=sorted(RECIPES), default="en")
+    ap.add_argument("--mode", choices=["fast", "auto", "accurate"], default="fast")
     ap.add_argument("--out", default=None,
-                    help="trace path (default chiprun_out/profile_<language>_<path>.json)")
+                    help="trace path (default: profile_<language>_<path>[_<mode>].json "
+                         "in the git-ignored output directory)")
     args = ap.parse_args()
+    suffix = "" if args.mode == "fast" else f"_{args.mode}"
     out = args.out or os.path.join(ROOT, "chiprun_out",
-                                   f"profile_{args.language}_{args.path}.json")
+                                   f"profile_{args.language}_{args.path}{suffix}.json")
     sys.path.insert(0, ROOT)
     import torch
     from torch.autograd import DeviceType
@@ -98,8 +104,8 @@ def main() -> int:
         bands, recipe = load_fixture(recipe=name)
     else:
         bands, recipe = load_script_fixture(name)
-    cfg = VseConfig(language=args.language)
-    engine = OcrEngine(language=args.language, config=cfg, device="cuda")
+    cfg = VseConfig(language=args.language, mode=args.mode)
+    engine = OcrEngine(language=args.language, mode=args.mode, config=cfg, device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
         clip = compose_clip(bands, recipe, os.path.join(tmp, "smoke.avi"))
         SubtitleExtractor(clip, recipe_area(recipe), cfg, engine=engine, device="cuda").run()
@@ -110,7 +116,7 @@ def main() -> int:
             ex.run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e6
-    print(f"{args.language} {args.path} path, warm run: pass seconds { {k: round(v, 4) for k, v in ex.pass_seconds.items()} }, "
+    print(f"{args.language} {args.path} path, mode {args.mode}, det {engine.spec.det_variant}, warm run: pass seconds { {k: round(v, 4) for k, v in ex.pass_seconds.items()} }, "
           f"{wall / 1e6:.4f} s under the profiler", flush=True)
 
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]

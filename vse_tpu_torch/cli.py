@@ -1,7 +1,7 @@
 """Command-line interface of the port.
 
     python -m vse_tpu_torch.cli extract VIDEO [VIDEO ...] \\
-        [--area ymin,ymax,xmin,xmax] [--language ch] [--mode fast] \\
+        [--area ymin,ymax,xmin,xmax] [--language ch] [--mode fast|auto|accurate] \\
         [--config config.json] [--output DIR] [--txt] \\
         [--no-word-segmentation] [--interactive-filters] [--device cuda]
     python -m vse_tpu_torch.cli sync --src SRC --dst DST --script S [...] \\
@@ -11,12 +11,14 @@
 
 Writes each video's SRT next to it (or into ``--output``); one OCR engine
 serves all the videos. With no ``--area`` it runs the fps strategy with the
-watermark and scene-text filters; with one, the keyframe strategy. Runs on
+watermark and scene-text filters; with one, per-frame detection in mode
+accurate and the keyframe strategy in modes fast and auto. Runs on
 the card unless ``--device cpu`` is given. With no ``--language`` the
 config's language runs (``VseConfig.language``, ``ch``), as in the JAX
 package. ``--config`` reads a reference-format ``config.json`` (``{"Main":
-{...}}``, ``VseConfig.from_json``); the flags given override it. Mode fast
-is ported, for every language; decoding a file needs OpenCV. A missing
+{...}}``, ``VseConfig.from_json``); the flags given override it; its
+``scanner_decoder`` may name the ffmpeg decoder. All three modes run, for
+every language; decoding a file needs OpenCV. A missing
 video makes the exit code 1. ``sync`` runs the audio re-timer with the JAX
 package's flags (``vse_tpu_torch/sync/cli.py``) and ``gui`` the web GUI
 (``vse_tpu_torch/gui/server.py``), routed as the JAX CLI routes them; both
@@ -105,7 +107,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "one, the fps strategy and its filters run")
     p.add_argument("--language", default=None,
                    help="subtitle language (default: the config's, ch)")
-    p.add_argument("--mode", default=None, choices=["fast"],
+    p.add_argument("--mode", default=None, choices=["fast", "auto", "accurate"],
                    help="recognition mode (default: the config's, fast)")
     p.add_argument("--config", default=None,
                    help="path to a config.json in the reference's format")

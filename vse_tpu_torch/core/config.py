@@ -34,8 +34,8 @@ class Mode(str, Enum):
 
 class Decoder(str, Enum):
     """Video decode backend for the keyframe scanner (reference
-    backend/tools/constant.py VideoSubFinderDecoder). The port decodes with
-    OpenCV; the ffmpeg decoder is not ported."""
+    backend/tools/constant.py VideoSubFinderDecoder): OpenCV, or an ffmpeg
+    rawvideo pipe (``video/decode.py``)."""
 
     OPENCV = "opencv"
     FFMPEG = "ffmpeg"
@@ -123,9 +123,12 @@ class VseConfig:
     # reference backend/tools/paddle_model_config.py:93-97).
     rec_image_height: int = 48
     rec_image_width: int = 320
+    # Perspective-rectified rec crops of oriented quads, off by default
+    # (subtitles are horizontal); on for tilted scene text.
+    rec_rectify: bool = False
     # DB postprocess (PaddleOCR defaults thresh .3, box_thresh .6, unclip
     # 1.6); components are labelled on a db_pool-x max-pooled map with
-    # db_sweeps label-propagation sweeps.
+    # db_sweeps label-propagation sweeps (db_pool 1: at full resolution).
     db_thresh: float = 0.3
     db_box_thresh: float = 0.6
     db_unclip_ratio: float = 1.6

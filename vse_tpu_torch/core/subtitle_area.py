@@ -93,3 +93,13 @@ class SubtitleArea:
         if sa <= 0:
             return float("inf")
         return (sa + box_area - inter) / sa - 1.0
+
+    def contains_box(self, xmin: float, xmax: float, ymin: float, ymax: float) -> bool:
+        """Full containment, as accurate mode's span text compare tests it
+        (reference backend/main.py:913-921)."""
+        return (
+            self.xmin <= xmin
+            and xmax <= self.xmax
+            and self.ymin <= ymin
+            and ymax <= self.ymax
+        )

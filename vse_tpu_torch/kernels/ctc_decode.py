@@ -32,14 +32,29 @@ launches = 0
 DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed order: the first half and the
+    second half added elementwise (an odd last value carried along) until
+    one value is left. Every add is an f32 elementwise op, so the bits do
+    not depend on the intra-op thread count, the vector width or the storage
+    offset, as those of ``torch.sum`` may (ROADMAP fault 14)."""
+    while x.shape[-1] > 1:
+        n = x.shape[-1]
+        h = n // 2
+        head = x[..., :h] + x[..., h : 2 * h]
+        x = torch.cat([head, x[..., 2 * h :]], dim=-1) if n % 2 else head
+    return x[..., 0]
+
+
 def argmax_lse_plain(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[N, T, C] logits -> (best id [N, T] int32, softmax prob of best
     [N, T] f32), the first max on ties. Same arithmetic as the Pallas body,
-    which casts any float dtype to f32 first."""
+    which casts any float dtype to f32 first; the sum over C has a fixed
+    order (``tree_sum``)."""
     x = logits.float()
     m, _ = x.max(dim=-1)
     best = torch.argmax(x, dim=-1).to(torch.int32)  # first maximal index
-    lse = m + torch.log(torch.sum(torch.exp(x - m[..., None]), dim=-1))
+    lse = m + torch.log(tree_sum(torch.exp(x - m[..., None])))
     return best, torch.exp(m - lse)
 
 
@@ -53,7 +68,7 @@ def collapse(best: torch.Tensor, best_prob: torch.Tensor, blank: int = 0):
     )
     keep = (best != blank) & (best != prev)
     n_kept = keep.sum(dim=1)
-    score_sum = torch.where(keep, best_prob, torch.zeros_like(best_prob)).sum(1)
+    score_sum = tree_sum(torch.where(keep, best_prob, torch.zeros_like(best_prob)))
     scores = torch.where(
         n_kept > 0, score_sum / n_kept.clamp(min=1).to(score_sum.dtype),
         torch.ones_like(score_sum),

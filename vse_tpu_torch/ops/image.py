@@ -163,3 +163,185 @@ def refine_boxes_ink(
     ny1 = torch.clamp(ny1, 0.0, frame_h - 1.0)
     refined = torch.stack([flat_b[:, 0], ny0, flat_b[:, 2], ny1], dim=-1)
     return torch.where(ok[:, None], refined, flat_b).reshape(boxes.shape)
+
+
+# --- the det resize of ``detect_batch`` (the reference's ``_resize_fn``) ---
+
+
+def resize_weight_mat(in_n: int, out_n: int, device=None) -> torch.Tensor:
+    """[in_n, out_n] f32 weights of ``jax.image.resize(..., "bilinear")``
+    along one axis: a triangle kernel widened by the downscale factor
+    (antialiased), each column normalized, as
+    ``jax._src.image.scale._compute_weight_mat`` computes them in f32."""
+    # the reciprocal of the scale is taken in f64, then rounded, as there
+    inv_scale = torch.tensor(1.0 / (out_n / in_n), dtype=torch.float32)
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample_f = (torch.arange(out_n, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = (sample_f[None, :] - torch.arange(in_n, dtype=torch.float32)[:, None]).abs() / kernel_scale
+    w = torch.clamp(1.0 - x, min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_n - 0.5)
+    return torch.where(inside[None, :], w, 0.0).to(device)
+
+
+def letterbox_resize(frames: torch.Tensor, out_h: int, out_w: int
+                     ) -> Tuple[torch.Tensor, float]:
+    """The JAX engine's det-only letterbox (``OcrEngine._resize_fn``):
+    frames [B, H, W, 3] -> f32 canvas [B, out_h, out_w, 3] of 0..255 values,
+    the aspect-preserving ``jax.image.resize`` bilinear resize at the top
+    left and zeros elsewhere (rows contracted first, as its einsum does).
+    Returns (canvas, 1 / scale)."""
+    B, H, W, C = frames.shape
+    dev = frames.device
+    scale = min(out_h / H, out_w / W)
+    nh, nw = int(round(H * scale)), int(round(W * scale))
+    x = frames.float()
+    x = torch.einsum("bhwc,ho->bowc", x, resize_weight_mat(H, nh, dev))
+    x = torch.einsum("bowc,wp->bopc", x, resize_weight_mat(W, nw, dev))
+    canvas = torch.zeros((B, out_h, out_w, C), dtype=torch.float32, device=dev)
+    canvas[:, :nh, :nw] = x
+    return canvas, 1.0 / scale
+
+
+def normalize_det(x: torch.Tensor) -> torch.Tensor:
+    """Det normalization of 0..255 values (uint8 or float) with the ImageNet
+    statistics, as XLA compiles ``(x / 255 - mean) / std``."""
+    dev = x.device
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    return fma(x.float(), recip(255.0).to(dev), -mean) * recip(IMAGENET_STD).to(dev)
+
+
+# --- rectified crops (the engine's ``rectify`` option) ---------------------
+
+
+def _sample(image: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, h: int,
+            row0: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of frames ``image`` [B, H, W, C] at band-local
+    coordinates ys / xs [B, K, h', w'] inside a band of ``h`` rows starting
+    at ``row0`` [B, K] (``_bilinear_sample_one`` on the band). Returns
+    [B, K, h', w', C]."""
+    W = image.shape[2]
+    y0 = torch.clamp(torch.floor(ys).to(torch.int64), 0, h - 1)
+    x0 = torch.clamp(torch.floor(xs).to(torch.int64), 0, W - 1)
+    y1 = torch.clamp(y0 + 1, 0, h - 1)
+    x1 = torch.clamp(x0 + 1, 0, W - 1)
+    wy = torch.clamp(ys - y0.float(), 0.0, 1.0)[..., None]
+    wx = torch.clamp(xs - x0.float(), 0.0, 1.0)[..., None]
+    b = torch.arange(image.shape[0], device=image.device)[:, None, None, None]
+    r0 = row0[..., None, None]
+
+    def at(y, x):
+        return image[b, r0 + y, x]
+
+    top = at(y0, x0) * (1 - wx) + at(y0, x1) * wx
+    bot = at(y1, x0) * (1 - wx) + at(y1, x1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def perspective_matrix(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """Homographies [..., 3, 3] mapping the rectangles ``src`` [..., 4, 2]
+    onto the quads ``tgt`` [..., 4, 2] (x, y): the 8x8 DLT system solved
+    per quad (``_perspective_matrix`` / ``_perspective_matrix_dyn``)."""
+    x, y = src[..., 0], src[..., 1]
+    X, Y = tgt[..., 0], tgt[..., 1]
+    one, zero = torch.ones_like(x), torch.zeros_like(x)
+    ra = torch.stack([x, y, one, zero, zero, zero, -x * X, -y * X], dim=-1)
+    rb_ = torch.stack([zero, zero, zero, x, y, one, -x * Y, -y * Y], dim=-1)
+    A = torch.stack([ra, rb_], dim=-2).reshape(src.shape[:-2] + (8, 8))
+    b = torch.stack([X, Y], dim=-1).reshape(src.shape[:-2] + (8,))
+    p = torch.linalg.solve(A, b)
+    return torch.cat([p, torch.ones_like(p[..., :1])], dim=-1).reshape(src.shape[:-2] + (3, 3))
+
+
+def _grid(out_h: int, out_w: int, device) -> torch.Tensor:
+    gy, gx = torch.meshgrid(torch.arange(out_h, dtype=torch.float32, device=device),
+                            torch.arange(out_w, dtype=torch.float32, device=device),
+                            indexing="ij")
+    return torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)  # [h, w, 3]
+
+
+def _map(grid: torch.Tensor, M: torch.Tensor):
+    mapped = torch.einsum("hwj,...ij->...hwi", grid, M)
+    den = torch.clamp(mapped[..., 2], min=1e-6)
+    return mapped[..., 1] / den, mapped[..., 0] / den
+
+
+def crop_and_rectify(image: torch.Tensor, quads: torch.Tensor, out_h: int,
+                     out_w: int) -> torch.Tensor:
+    """Perspective-rectify N quads [N, 4, 2] out of one frame [H, W, C]
+    (float) into [N, out_h, out_w, C]; all-zero quads give black crops."""
+    dev = image.device
+    dst = torch.tensor([[0.0, 0.0], [out_w - 1.0, 0.0], [out_w - 1.0, out_h - 1.0],
+                        [0.0, out_h - 1.0]], device=dev).expand(quads.shape[0], 4, 2)
+    ys, xs = _map(_grid(out_h, out_w, dev), perspective_matrix(dst, quads.float()))
+    row0 = torch.zeros((1, quads.shape[0]), dtype=torch.int64, device=dev)
+    return _sample(image[None], ys[None], xs[None], image.shape[0], row0)[0]
+
+
+def quads_from_boxes(boxes: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Oriented quads [..., 4, 2] (clockwise from top left) from xyxy
+    bounding boxes [..., 4] of rotated components and their principal-axis
+    angles [...]: the rotated rectangle's (w, h) recovered from
+    Wbb = w|cos| + h|sin|, Hbb = w|sin| + h|cos|, clamped to the bbox where
+    the inversion degenerates (|angle| near 45 degrees)."""
+    x0, y0, x1, y1 = boxes.unbind(-1)
+    wbb = torch.clamp(x1 - x0, min=1.0)
+    hbb = torch.clamp(y1 - y0, min=1.0)
+    c = torch.cos(angles).abs()
+    s = torch.sin(angles).abs()
+    det = c * c - s * s
+    safe = det.abs() > 0.2
+    den = torch.where(safe, det, torch.ones_like(det))
+    w = torch.where(safe, (c * wbb - s * hbb) / den, wbb)
+    h = torch.where(safe, (c * hbb - s * wbb) / den, hbb)
+    diag = torch.sqrt(wbb * wbb + hbb * hbb)
+    w = torch.minimum(torch.clamp(w, min=1.0), diag)
+    h = torch.minimum(torch.clamp(h, min=1.0), diag)
+    cx = (x0 + x1) / 2.0
+    cy = (y0 + y1) / 2.0
+    ca, sa = torch.cos(angles), torch.sin(angles)
+    ux, uy = ca * w / 2.0, sa * w / 2.0
+    vx, vy = -sa * h / 2.0, ca * h / 2.0
+    return torch.stack([
+        torch.stack([cx - ux - vx, cy - uy - vy], -1),
+        torch.stack([cx + ux - vx, cy + uy - vy], -1),
+        torch.stack([cx + ux + vx, cy + uy + vy], -1),
+        torch.stack([cx - ux + vx, cy - uy + vy], -1),
+    ], dim=-2)
+
+
+def crop_quads_rectified_windowed(frames: torch.Tensor, quads: torch.Tensor, out_h: int,
+                                  out_w: int, window_rows: int = 288) -> torch.Tensor:
+    """The batched ``crop_quad_rectified_windowed``: each quad of
+    ``quads`` [B, K, 4, 2] rectified out of its frame of ``frames``
+    [B, H, W, C] (float 0..255) with the PP-OCR aspect policy (height
+    ``out_h``, aspect kept, zero-padded right), sampled inside a
+    ``window_rows``-high band from the quad's (clamped) top. Returns
+    [B, K, out_h, out_w, C]."""
+    H = frames.shape[1]
+    dev = frames.device
+    window = min(window_rows, H)
+    q = quads.float()
+    ymin = q[..., 1].amin(dim=-1)
+    y_start = torch.clamp(torch.floor(ymin).to(torch.int64), 0, H - window)  # [B, K]
+    local = torch.stack([q[..., 0], q[..., 1] - y_start[..., None].float()], dim=-1)
+    qw = 0.5 * (torch.linalg.norm(local[..., 1, :] - local[..., 0, :], dim=-1)
+                + torch.linalg.norm(local[..., 2, :] - local[..., 3, :], dim=-1))
+    qh = 0.5 * (torch.linalg.norm(local[..., 3, :] - local[..., 0, :], dim=-1)
+                + torch.linalg.norm(local[..., 2, :] - local[..., 1, :], dim=-1))
+    qw = torch.clamp(qw, min=1.0)
+    qh = torch.clamp(qh, min=1.0)
+    target_w = torch.clamp(qw * out_h / qh, max=float(out_w))
+    zero = torch.zeros_like(target_w)
+    bottom = torch.full_like(target_w, out_h - 1.0)
+    dst = torch.stack([torch.stack([zero, zero], -1),
+                       torch.stack([target_w - 1.0, zero], -1),
+                       torch.stack([target_w - 1.0, bottom], -1),
+                       torch.stack([zero, bottom], -1)], dim=-2)
+    grid = _grid(out_h, out_w, dev)
+    ys, xs = _map(grid, perspective_matrix(dst, local))
+    sampled = _sample(frames.float(), ys, xs, window, y_start)
+    keep = (grid[..., 0] < target_w[..., None, None])[..., None]
+    return torch.where(keep, sampled, torch.zeros((), device=dev))

@@ -6,11 +6,18 @@ The reference's dedup and span logic keys on ``Levenshtein.ratio``
 ``(len(a) + len(b) - D) / (len(a) + len(b))``, where D is the edit distance
 with substitution cost 2. It agrees exactly with
 ``vse_tpu.ops.levenshtein.ratio`` (its native, wheel and pure paths agree).
+
+Results are memoized: accurate mode's span tracker compares every read of a
+cue with every other (``medoid_of``), and a cue's frames repeat a handful of
+texts, so a 500-frame pass asks ~42,000 ratios of a few dozen pairs.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 
+
+@lru_cache(maxsize=1 << 16)
 def ratio(a: str, b: str) -> float:
     """Normalized indel similarity in [0, 1]."""
     la, lb = len(a), len(b)

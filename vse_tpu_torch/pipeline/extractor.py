@@ -4,7 +4,12 @@
 ``SubtitleExtractor(video, sub_area).run()`` picks the reference's strategy
 (backend/main.py:137-147):
 
-- with a subtitle area (mode fast), the keyframe strategy:
+- with a subtitle area in mode accurate, per-frame detection: every frame's
+  upload band through the engine (the server det), fed by
+  ``device_prefetch``, and ``DetSpanTracker`` turning the per-frame reads
+  into cues (``extract_frame_by_det``);
+- with a subtitle area in mode fast or auto, the keyframe strategy (auto
+  OCRs with whichever det its engine resolved):
   1. scan every frame's subtitle area with kernel K2, fed by
      ``device_prefetch``, and turn the stats into keyframe spans
      (``scan_keyframe_spans``);
@@ -25,7 +30,7 @@ switches: ``debug_no_delete_cache`` keeps the raw records as ``raw.txt``
 beside the SRT (``dump_raw_records``), and ``debug_ocr_loss`` writes a
 frame whose CJK-family read lost every CJK character to ``loss/`` beside
 the video (``_maybe_dump_ocr_loss``; it needs OpenCV, imported only then).
-Not ported: the accurate and auto modes and the ffmpeg decoder.
+``scanner_decoder`` picks the frame streams' decoder (OpenCV or ffmpeg).
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from vse_tpu_torch.core.config import Decoder, Mode, VseConfig
+from vse_tpu_torch.core.config import Mode, VseConfig
 from vse_tpu_torch.core.i18n import tr
 from vse_tpu_torch.core.subtitle_area import SubtitleArea
 from vse_tpu_torch.device import resolve_device
@@ -107,12 +112,78 @@ def _merge_sim(a: str, b: str) -> float:
     return sim
 
 
+def quad_bounds(quad) -> Tuple[float, float, float, float]:
+    """(xmin, xmax, ymin, ymax) inside a quad's four corners, as the
+    reference's gates read a box."""
+    return (max(quad[0][0], quad[3][0]), min(quad[1][0], quad[2][0]),
+            max(quad[0][1], quad[1][1]), min(quad[2][1], quad[3][1]))
+
+
 def medoid_of(group: list):
     """The group's medoid read (max summed similarity to the others),
     confidence as the tiebreak."""
     if len(group) == 1:
         return group[0]
     return max(group, key=lambda s: (sum(ratio(s[1], t[1]) for t in group), s[2]))
+
+
+class DetSpanTracker:
+    """Accurate mode's span state machine over per-frame OCR results (the
+    reference's serialized det -> rec -> compare loop, backend/main.py:
+    255-376, as a tracker that frames of several videos can feed; results
+    must arrive in order per video).
+
+    A contiguous run of frames with text in the area is buffered and split
+    into cue groups at flush time by ``split_text_groups`` (a mid-fade
+    garble merges back into its cue); each group records its medoid read
+    at its first and last frame. Absences shorter than the grace (0.2 s,
+    at least 2 frames) do not end a run. Once a run holds ``_FLUSH_AFTER``
+    samples, the groups before its last are emitted early."""
+
+    _FLUSH_AFTER = 256
+
+    def __init__(self, extractor: "SubtitleExtractor"):
+        self.ex = extractor
+        self.thr = extractor.config.threshold_text_similarity / 100.0
+        self.buf: list = []  # [(frame_no, area_text, conf, dt_box, rec_res)]
+        fps = float(getattr(extractor, "fps", 0.0) or 25.0)
+        self.grace = max(2, round(0.2 * fps))
+
+    def _emit(self, groups: list) -> None:
+        for g in groups:
+            # presence flips always split, so a group is all-empty or all-text;
+            # an empty group records nothing
+            if not g[0][1]:
+                continue
+            best = medoid_of(g)
+            self.ex._gate_and_record(g[0][0], best[3], best[4])
+            if g[-1][0] != g[0][0]:
+                self.ex._gate_and_record(g[-1][0], best[3], best[4])
+
+    def _flush(self) -> None:
+        if self.buf:
+            self._emit(split_text_groups(self.buf, self.thr))
+            self.buf = []
+
+    def feed(self, frame_no: int, dt_box: list, rec_res: list) -> None:
+        ex = self.ex
+        if not any(ex.in_area(quad) for quad in dt_box):
+            if self.buf and frame_no - self.buf[-1][0] >= self.grace:
+                self._flush()
+            return
+        area_text = ex._area_text(dt_box, rec_res)
+        kept = ex._gate_lines(dt_box, rec_res)
+        conf = float(np.mean([p for _, _, p in kept])) if kept else 0.0
+        self.buf.append((frame_no, area_text, conf, dt_box, rec_res))
+        if len(self.buf) >= self._FLUSH_AFTER:
+            groups = split_text_groups(self.buf, self.thr)
+            if len(groups) > 1:
+                # only the last group can still grow or merge back
+                self._emit(groups[:-1])
+                self.buf = list(groups[-1])
+
+    def finish(self) -> None:
+        self._flush()
 
 
 class SubtitleExtractor:
@@ -129,13 +200,6 @@ class SubtitleExtractor:
         resume: bool = False,
     ):
         self.config = config or VseConfig()
-        if self.config.mode != Mode.FAST:
-            raise NotImplementedError(
-                f"mode {self.config.mode.value!r} is not ported yet (it needs the "
-                f"det_server weights); use mode 'fast'"
-            )
-        if self.config.scanner_decoder != Decoder.OPENCV:
-            raise NotImplementedError("the ffmpeg decoder is not ported; use 'opencv'")
         self.device = resolve_device(device)
         self.video = video
         self.meta = probe(video)
@@ -149,6 +213,7 @@ class SubtitleExtractor:
         self._engine = engine
         self.raw_records: List[RawRecord] = []
         self.timeline = SrtFile()
+        self.use_keyframe_timeline = False
         self._frame_to_ms: Dict[int, float] = {}
         self.video_path = path = video_path(video)
         self.subtitle_output_path = os.path.join(
@@ -219,10 +284,7 @@ class SubtitleExtractor:
         dev_rate = self.config.subtitle_area_deviation_rate
         kept = []
         for quad, (text, prob) in zip(dt_box, rec_res):
-            xmin = max(quad[0][0], quad[3][0])
-            xmax = min(quad[1][0], quad[2][0])
-            ymin = max(quad[0][1], quad[1][1])
-            ymax = min(quad[2][1], quad[3][1])
+            xmin, xmax, ymin, ymax = quad_bounds(quad)
             if self.engine.family == "en":
                 text = CJK_RE.sub("", text)
             if self.sub_area is not None:
@@ -273,6 +335,20 @@ class SubtitleExtractor:
             xmin, xmax, ymin, ymax = r.coord
             cv2.rectangle(img, (xmin, ymin), (xmax, ymax), (0, 0, 255), 2)
         cv2.imwrite(os.path.join(loss_dir, f"{str(frame_no).zfill(8)}.png"), img)
+
+    def in_area(self, quad) -> bool:
+        """Whether a box lies wholly inside the area (always, without one)."""
+        return self.sub_area is None or self.sub_area.contains_box(*quad_bounds(quad))
+
+    def _area_text(self, dt_box: list, rec_res: list) -> str:
+        """The concatenated text of the boxes fully inside the area
+        (reference backend/main.py:895-921 ``__get_area_text``)."""
+        return "".join(text for quad, (text, _) in zip(dt_box, rec_res) if self.in_area(quad))
+
+    def stream(self, batch_size: int, **kw) -> FrameStream:
+        """A frame stream of the video on the configured decoder."""
+        return FrameStream(self.video, batch_size=batch_size,
+                           decoder=self.config.scanner_decoder, **kw)
 
     def capture_frame_with_subtitle_area(self, output_path: Optional[str] = None
                                          ) -> Optional[str]:
@@ -326,7 +402,7 @@ class SubtitleExtractor:
         ahead by ``device_prefetch``; the stats stay on the device until the
         pass ends. Then the spans and the raw timeline."""
         a = self.sub_area
-        stream = FrameStream(self.video, batch_size=32)
+        stream = self.stream(32)
         params = ScanParams()
         all_stats: List[torch.Tensor] = []
         all_nos: List[np.ndarray] = []
@@ -349,6 +425,7 @@ class SubtitleExtractor:
                 i + 1, int(self.frame_to_ms(sp.start_frame)),
                 int(self.frame_to_ms(sp.end_frame)), "",
             ))
+        self.use_keyframe_timeline = True
         return spans
 
     def keyframe_sample_targets(self, spans) -> Tuple[List[int], List[Tuple[int, int]]]:
@@ -407,6 +484,7 @@ class SubtitleExtractor:
                 # a frame number: the AB gate was applied to the span above
                 self._gate_and_record(self.ms_to_frameno(start_ms), best[3], best[4],
                                       frame=best[5], ab_checked=True)
+        self.use_keyframe_timeline = True
 
     def extract_frame_by_keyframe(self) -> None:
         """Pass 1 scans; pass 2 OCRs the within-span samples (decoded in one
@@ -455,8 +533,8 @@ class SubtitleExtractor:
                 self.append_output(tr("ResumeFrom", start_frame, len(manifest.records)))
             else:
                 manifest = ProgressManifest(path, "fps")
-        stream = FrameStream(self.video, batch_size=self.config.frame_batch,
-                             stride=stride, start_frame=start_frame)
+        stream = self.stream(self.config.frame_batch, stride=stride,
+                             start_frame=start_frame)
         transform, origin = None, (0, 0)
         band = self.upload_band()
         if band is not None:
@@ -486,6 +564,37 @@ class SubtitleExtractor:
         self.pass_seconds["ocr"] = time.perf_counter() - t0
         self.n_samples = n_samples
 
+    # --- per-frame detection (mode accurate with an area) -------------------
+
+    def extract_frame_by_det(self) -> None:
+        """Every frame's upload band through the engine in batches of
+        ``frame_batch`` (reference backend/main.py:255-376, :924-952),
+        uploaded ahead by ``device_prefetch``; ``DetSpanTracker`` turns the
+        per-frame reads into cues."""
+        t0 = time.perf_counter()
+        stream = self.stream(self.config.frame_batch)
+        tracker = DetSpanTracker(self)
+        transform, origin = None, (0, 0)
+        band = self.upload_band()
+        if band is not None:
+            y0, y1 = band
+            transform, origin = (lambda f: f[:, y0:y1]), (y0, 0)
+        n_frames = 0
+        for batch, frames in device_prefetch(stream, self.device, transform=transform):
+            self._check_cancel()
+            n_valid = int(batch.valid.sum())
+            results = self.engine.predict_batch(frames, origin=origin)[:n_valid]
+            for i in range(n_valid):
+                frame_no = int(batch.frame_nos[i])
+                tracker.feed(frame_no, *results[i])
+                done = frame_no / max(1, self.frame_count)
+                self.update_progress(frame_extract=done * 100, ocr=done * 100)
+            n_frames += n_valid
+        tracker.finish()
+        self._frame_to_ms.update(stream.frame_to_ms)
+        self.pass_seconds["ocr"] = time.perf_counter() - t0
+        self.n_samples = n_frames
+
     def apply_filters(self) -> None:
         """The watermark filter (the auto text-constancy policy unless a
         ``confirm`` is given) and the scene-text filter (reference
@@ -514,7 +623,9 @@ class SubtitleExtractor:
         self.raw_records = []
         self.pass_seconds = {}
         self.n_spans = self.n_samples = 0
-        if self.sub_area is not None:
+        if self.sub_area is not None and self.config.mode == Mode.ACCURATE:
+            self.extract_frame_by_det()
+        elif self.sub_area is not None:
             self.extract_frame_by_keyframe()
         else:
             self.extract_frame_by_fps()
@@ -538,8 +649,8 @@ class SubtitleExtractor:
 
     def generate_subtitle_file(self) -> None:
         """Dedup the raw records, then merge them into the keyframe timeline
-        (keyframe strategy) or pad them into cues (fps strategy)."""
-        keyframe = self.sub_area is not None
+        (keyframe strategy) or pad them into cues (fps and per-frame det)."""
+        keyframe = self.use_keyframe_timeline
         spans = remove_duplicate_subtitles(
             self.raw_records,
             threshold_percent=self.config.threshold_text_similarity,

@@ -10,16 +10,20 @@ go back to their videos:
   robin into ``frame_batch``-sized batches (``interleave_streams``; the
   tail batch padded with black frames whose results are dropped), uploaded
   ahead by ``device_prefetch``;
-- keyframe strategy (mode fast, every video with an area): the scan (kernel
-  K2) runs per video; the within-span samples of all videos, each cropped to
-  its own upload band, share the OCR chunks of their cropped shape, so one
-  chunk and one K1 launch may hold samples of several videos; the tail
-  chunk is padded to ``frame_batch``.
+- per-frame detection (mode accurate, every video with an area): every
+  frame of the videos that share a geometry and a band interleaves as in
+  the fps strategy, and one ``DetSpanTracker`` a video turns its frames'
+  reads into cues;
+- keyframe strategy (mode fast or auto, every video with an area): the
+  scan (kernel K2) runs per video; the within-span samples of all videos,
+  each cropped to its own upload band, share the OCR chunks of their
+  cropped shape, so one chunk and one K1 launch may hold samples of
+  several videos; the tail chunk is padded to ``frame_batch``.
 
-Then each video, on its own: the watermark and scene-text filters (no area),
-dedup and its SRT, word segmentation. Only mode fast is ported: modes auto
-and accurate need the server det weights (``det_server``), which the port
-cannot read yet, and raise.
+The engine's mode picks the det (``core/registry.py``). Then each video, on
+its own: the watermark and scene-text filters (no area), dedup and its
+SRT, word segmentation. As in the reference, these streams decode with
+OpenCV whatever ``scanner_decoder`` says.
 """
 
 from __future__ import annotations
@@ -31,8 +35,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from vse_tpu_torch.core.config import VseConfig
-from vse_tpu_torch.pipeline.extractor import SubtitleExtractor
+from vse_tpu_torch.core.config import Mode, VseConfig
+from vse_tpu_torch.pipeline.extractor import DetSpanTracker, SubtitleExtractor
 from vse_tpu_torch.pipeline.feed import device_prefetch
 from vse_tpu_torch.pipeline.ocr_engine import OcrEngine
 from vse_tpu_torch.post.reformat import execute as reformat_execute
@@ -105,7 +109,7 @@ def extract_many(
     """Extract several videos through shared OCR chunks on ONE engine.
     Returns {video path: SRT path}. ``stats``, when given, receives
     ``chunks`` (the OCR chunks run) and ``samples`` (OCR samples per
-    video). Modes other than fast raise, as ``SubtitleExtractor`` does."""
+    video)."""
     config = config or VseConfig()
     n = len(videos)
     sub_areas = list(sub_areas) if sub_areas is not None else [None] * n
@@ -119,7 +123,10 @@ def extract_many(
             ex.subtitle_output_path = output_paths[i]
         extractors.append(ex)
 
-    if all(a is not None for a in sub_areas):
+    all_areas = all(a is not None for a in sub_areas)
+    if all_areas and config.mode == Mode.ACCURATE:
+        chunks = _many_accurate(extractors, engine, config)
+    elif all_areas:
         chunks = _many_keyframe(extractors, engine, config)
     else:
         chunks = _many_fps(extractors, engine, config)
@@ -151,24 +158,44 @@ def _many_fps(extractors, engine: OcrEngine, config: VseConfig) -> int:
     """The fps strategy over shared batches. Each batch goes to the engine
     whole (padding included, one batch shape); results of padded rows are
     dropped. Returns the number of batches."""
+    return _many_streamed(extractors, engine, config, per_frame=False)
+
+
+def _many_accurate(extractors, engine: OcrEngine, config: VseConfig) -> int:
+    """Per-frame detection over shared batches of every frame, each video's
+    reads fed to its own ``DetSpanTracker``. Returns the number of
+    batches."""
+    return _many_streamed(extractors, engine, config, per_frame=True)
+
+
+def _many_streamed(extractors, engine: OcrEngine, config: VseConfig, per_frame: bool) -> int:
+    """The videos' frames (every one with ``per_frame``, else the fps
+    samples), interleaved by geometry group into shared batches; each
+    result is recorded (fps) or fed to its video's tracker (per frame)."""
     n_batches = 0
     for (_h, _w, band), ids in _geometry_groups(extractors).items():
         origin = (band[0], 0) if band is not None else (0, 0)
         streams = []
         for i in ids:
             ex = extractors[i]
-            stride = max(1, int(ex.fps // config.extract_frequency))
+            stride = 1 if per_frame else max(1, int(ex.fps // config.extract_frequency))
             streams.append(FrameStream(ex.video, batch_size=config.frame_batch, stride=stride))
+        trackers = {i: DetSpanTracker(extractors[i]) for i in ids} if per_frame else {}
         batches = interleave_streams(streams, config.frame_batch, crop=band)
         for batch, frames in device_prefetch(batches, engine.device):
             nv = int(batch.valid.sum())
             results = engine.predict_batch(frames, origin=origin)
             for k in range(nv):
-                ex = extractors[ids[int(batch.video_ids[k])]]
-                ex._gate_and_record(int(batch.frame_nos[k]), *results[k])
-                ex.n_samples += 1
+                i = ids[int(batch.video_ids[k])]
+                if per_frame:
+                    trackers[i].feed(int(batch.frame_nos[k]), *results[k])
+                else:
+                    extractors[i]._gate_and_record(int(batch.frame_nos[k]), *results[k])
+                extractors[i].n_samples += 1
             n_batches += 1
         for i, s in zip(ids, streams):
+            if per_frame:
+                trackers[i].finish()
             extractors[i]._frame_to_ms.update(s.frame_to_ms)
     return n_batches
 

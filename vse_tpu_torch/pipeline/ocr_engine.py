@@ -1,9 +1,11 @@
-"""The OCR engine: det + rec in one device step (the port of the fast greedy
-path of ``vse_tpu/pipeline/ocr_engine.py``).
+"""The OCR engine: det + rec in one device step (the port of
+``vse_tpu/pipeline/ocr_engine.py``).
 
-One ``ocr_step`` runs letterbox -> PP-OCRv3 DB det -> pooled box extraction
--> boxes to frame coords -> y-expanded, ink-tight two-pass crops -> CRNN ->
-greedy CTC decode (kernel K1), with the boxes on the device throughout.
+One ``ocr_step`` runs letterbox -> DB det -> box extraction -> boxes to
+frame coords -> y-expanded, ink-tight two-pass crops (or, with
+``rectify``, perspective-rectified crops of oriented quads) -> CRNN ->
+greedy CTC decode (kernel K1, one launch a chunk), with the boxes on the
+device throughout.
 The models, the letterbox and the crops reproduce the JAX engine's bf16
 numerics (``models/bf16.py``); on the card the two models' forwards replay
 as CUDA graphs (``models/graphed.py``).
@@ -20,12 +22,25 @@ heads are not exported yet. Decoded text goes through the reference's
 script post-pass (``_to_logical``): visual -> logical order for arabic, the
 homoglyph fold for cyrillic and el.
 
-Not ported in this slice: rectified crops, beam decode, a device mesh, the
-server det/rec variants (modes auto and accurate), ``detect_batch``.
+The mode picks the models as the reference's registry does
+(``core/registry.py::resolve``): fast runs the PP-OCRv3 mobile det
+(``models/ppocr_det.py``), accurate the server det
+(``models/db_detector.py`` on the exported ``det_server`` weights), and
+auto the server det when accelerated (``config.hardware_acceleration`` on
+a CUDA device, as the JAX package's accelerator check) and the mobile one
+otherwise. A server rec head is never exported, so the rec falls back to
+the family's mobile head, as the reference's engine falls back.
+
+``detect_batch`` is the det alone (the reference's det-only letterbox,
+``letterbox_resize``). ``decode="beam"`` runs that det, then the rec on
+f32 crops of the whole frame height and a host prefix beam
+(``ops/ctc.py``) over the log-softmax of its logits; K1 is not launched
+there. Not ported: a device mesh.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import Any, List, Optional, Tuple, Union
 
@@ -33,21 +48,26 @@ import numpy as np
 import torch
 
 from vse_tpu_torch.core.arabic import HOMOGLYPHS, visual_to_logical
-from vse_tpu_torch.core.charset import Charset, get_charset, script_family, to_jamo
+from vse_tpu_torch.core.charset import Charset, get_charset, to_jamo
 from vse_tpu_torch.core.config import Mode, VseConfig
+from vse_tpu_torch.core.registry import ModelSpec, resolve
 from vse_tpu_torch.device import resolve_device
 from vse_tpu_torch.kernels.ctc_decode import ctc_greedy_decode
 from vse_tpu_torch.models.bf16 import emulate, fma
 from vse_tpu_torch.models.crnn import CRNNRecognizer
+from vse_tpu_torch.models.db_detector import DBDetector
 from vse_tpu_torch.models.graphed import GraphedForward
 from vse_tpu_torch.models.ppocr_det import PPOCRv3DetMobile
+from vse_tpu_torch.ops.ctc import ctc_prefix_beam_decode
 from vse_tpu_torch.ops.db_postprocess import db_postprocess
 from vse_tpu_torch.ops.image import (
-    crop_boxes_windowed, letterbox_matmul, recip, refine_boxes_ink,
+    crop_boxes_windowed, crop_quads_rectified_windowed, letterbox_matmul, letterbox_resize,
+    normalize_det, quads_from_boxes, recip, refine_boxes_ink,
 )
 from vse_tpu_torch.post.homoglyph import normalize_script
 from vse_tpu_torch.weights import (
-    from_jax_params, load_det_npz, load_rec_flat, load_rec_meta, rec_head_paths,
+    from_jax_params, load_det_npz, load_det_server, load_rec_flat, load_rec_meta,
+    rec_head_paths,
 )
 
 
@@ -107,15 +127,28 @@ def expand_boxes_y(boxes: torch.Tensor, frac: float, h: int) -> torch.Tensor:
 
 
 def crops_tight(frames: torch.Tensor, boxes: torch.Tensor, rec_h: int,
-                rec_w: int, cfg: VseConfig, frame_h: int) -> torch.Tensor:
+                rec_w: int, cfg: VseConfig, frame_h: int,
+                window_rows: int = 288) -> torch.Tensor:
     """Rec crops [B, K, rec_h, rec_w, 3] with the ink-tight two-pass policy:
     a provisional crop from the expanded boxes, its vertical ink band, then
-    a re-crop of the ORIGINAL frame to ink + margin."""
-    crops0 = crop_boxes_windowed(frames, boxes, rec_h, rec_w)
+    a re-crop of the ORIGINAL frame to ink + margin. ``window_rows`` at the
+    frame height is the reference's unwindowed crop."""
+    crops0 = crop_boxes_windowed(frames, boxes, rec_h, rec_w, window_rows)
     if not cfg.rec_crop_tighten:
         return crops0
     refined = refine_boxes_ink(crops0, boxes, cfg.rec_crop_tight_margin, frame_h)
-    return crop_boxes_windowed(frames, refined, rec_h, rec_w)
+    return crop_boxes_windowed(frames, refined, rec_h, rec_w, window_rows)
+
+
+def rec_normalize(crops: torch.Tensor) -> torch.Tensor:
+    """``(crops / 255 - 0.5) / 0.5`` as XLA compiles it."""
+    return fma(crops, recip(255.0).to(crops.device), -0.5) * 2.0
+
+
+def log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_softmax`` over the last axis, in its order of ops."""
+    shifted = x - x.amax(dim=-1, keepdim=True)
+    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
 
 
 def head_charset(language: str, rec_meta: dict) -> Charset:
@@ -136,7 +169,8 @@ def head_charset(language: str, rec_meta: dict) -> Charset:
 
 
 class OcrEngine:
-    """Detector + recognizer on one device, fast mode, greedy decode."""
+    """Detector + recognizer on one device, in mode fast, auto or accurate,
+    with greedy (kernel K1) or beam decode."""
 
     def __init__(
         self,
@@ -144,21 +178,37 @@ class OcrEngine:
         mode: Mode = Mode.FAST,
         config: Optional[VseConfig] = None,
         device: Union[str, torch.device] = "cuda",
+        accelerated: Optional[bool] = None,
+        decode: str = "greedy",
+        beam_width: int = 8,
+        rectify: Optional[bool] = None,
     ):
+        """``accelerated`` (auto mode's choice of the server models) defaults
+        to ``config.hardware_acceleration`` on a CUDA device. ``decode``:
+        'greedy' (kernel K1) or 'beam' (host prefix beam of ``beam_width``
+        over device log-probs). ``rectify`` (default
+        ``config.rec_rectify``): rectified crops of oriented quads."""
         self.config = config or VseConfig(language=language, mode=mode)
         self.device = resolve_device(device)
-        if Mode(mode) != Mode.FAST:
-            raise NotImplementedError(
-                f"mode {Mode(mode).value!r} needs the server det/rec models, "
-                "which are not ported yet; use mode 'fast'"
-            )
+        self.mode = Mode(mode)
+        if decode not in ("greedy", "beam"):
+            raise ValueError(f"decode must be 'greedy' or 'beam', got {decode!r}")
+        if accelerated is None:
+            accelerated = self.config.hardware_acceleration and self.device.type == "cuda"
         self.language = language
-        self.family = script_family(language)
+        self.spec: ModelSpec = resolve(language, self.mode, accelerated)
+        self.family = self.spec.rec_family
         get_charset(language)  # raises for a family not ported
-        rec_meta = load_rec_meta(self.family)
+        # server -> mobile rec fallback: no server head is exported, as the
+        # reference's engine falls back when its checkpoint is missing
+        self.rec_variant = self.spec.rec_variant
+        if self.rec_variant == "server" and not os.path.exists(
+                rec_head_paths(self.family, "server")[0]):
+            self.rec_variant = "mobile"
+        rec_meta = load_rec_meta(self.family, self.rec_variant)
         if rec_meta is None:
             raise FileNotFoundError(
-                f"no exported rec head at {rec_head_paths(self.family)[0]}; "
+                f"no exported rec head at {rec_head_paths(self.family, self.rec_variant)[0]}; "
                 "export one with tools/export_torch_weights.py"
             )
         # the head's class count and order are part of its weights
@@ -177,9 +227,14 @@ class OcrEngine:
             hidden=int(rec_meta.get("hidden", 0) or 0),
             cnn_scale=float(rec_meta.get("cnn_scale", 0.0) or 0.0),
         )
-        self.rec_model.load_state_dict(from_jax_params(load_rec_flat(self.family)))
-        self.det_model = PPOCRv3DetMobile()
-        self.det_model.load_state_dict(load_det_npz())
+        self.rec_model.load_state_dict(
+            from_jax_params(load_rec_flat(self.family, self.rec_variant)))
+        if self.spec.det_variant == "server":
+            self.det_model = DBDetector("server")
+            self.det_model.load_state_dict(load_det_server())
+        else:
+            self.det_model = PPOCRv3DetMobile()
+            self.det_model.load_state_dict(load_det_npz())
         # both models run the reference's bf16 numerics (models/bf16.py)
         emulate(self.rec_model)
         emulate(self.det_model)
@@ -190,6 +245,9 @@ class OcrEngine:
         self.rec_h = self.config.rec_image_height
         self.rec_w = self.config.rec_image_width
         self.max_boxes = self.config.max_boxes_per_frame
+        self.decode = decode
+        self.beam_width = beam_width
+        self.rectify = self.config.rec_rectify if rectify is None else rectify
 
     def det_bucket(self, h: int, w: int) -> Tuple[int, int]:
         """Det canvas: multiples of 32 (backbone stride), capped by the
@@ -209,7 +267,7 @@ class OcrEngine:
         hd, wd = self.det_bucket(h, w)
         x, (inv_y, inv_x) = letterbox_matmul(frames, hd, wd)
         prob = self.det_forward(x)
-        boxes, det_scores, valid, _ = db_postprocess(
+        boxes, det_scores, valid, angles = db_postprocess(
             prob,
             max_boxes=self.max_boxes,
             thresh=cfg.db_thresh,
@@ -227,11 +285,16 @@ class OcrEngine:
             ],
             dim=-1,
         )
-        crop_boxes = expand_boxes_y(boxes, cfg.rec_crop_expand_y, h)
-        crops = crops_tight(frames, crop_boxes, self.rec_h, self.rec_w, cfg, h)
+        if self.rectify:
+            # quads from the unexpanded boxes: the oriented fit frames the
+            # glyphs without the axis-aligned path's y-expansion
+            crops = crop_quads_rectified_windowed(
+                frames.float(), quads_from_boxes(boxes, angles), self.rec_h, self.rec_w)
+        else:
+            crop_boxes = expand_boxes_y(boxes, cfg.rec_crop_expand_y, h)
+            crops = crops_tight(frames, crop_boxes, self.rec_h, self.rec_w, cfg, h)
         K = crops.shape[1]
-        crops = crops.reshape((B * K,) + tuple(crops.shape[2:]))
-        crops = fma(crops, recip(255.0).to(crops.device), -0.5) * 2.0
+        crops = rec_normalize(crops.reshape((B * K,) + tuple(crops.shape[2:])))
         logits = self.rec_forward(crops).contiguous()
         ids, mask, rec_scores = ctc_greedy_decode(logits)
         T = ids.shape[1]
@@ -251,6 +314,8 @@ class OcrEngine:
         if isinstance(frames_u8, np.ndarray):
             frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
         frames_u8 = frames_u8.to(self.device)
+        if self.decode == "beam":
+            return self._predict_batch_beam(frames_u8, origin)
         B = frames_u8.shape[0]
         chunk = max(1, self.config.max_batch_size)
         out: List[Tuple[list, list]] = []
@@ -261,6 +326,78 @@ class OcrEngine:
             out.extend(self._format_results(
                 fr.shape[0], boxes, valid, ids, mask, rec_scores, origin
             ))
+        return out
+
+    @torch.inference_mode()
+    def detect_batch(self, frames_u8: Union[np.ndarray, torch.Tensor]):
+        """The det alone (the reference's det-only role): frames [B, h, w, 3]
+        uint8 -> numpy (boxes [B, K, 4] xyxy in frame coords, det_scores
+        [B, K], valid [B, K]), through the reference's det-only letterbox."""
+        if isinstance(frames_u8, np.ndarray):
+            frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
+        frames_u8 = frames_u8.to(self.device)
+        cfg = self.config
+        _, h, w, _ = frames_u8.shape
+        hd, wd = self.det_bucket(h, w)
+        canvas, inv_scale = letterbox_resize(frames_u8, hd, wd)
+        prob = self.det_forward(normalize_det(canvas))
+        boxes, scores, valid, _ = db_postprocess(
+            prob,
+            max_boxes=self.max_boxes,
+            thresh=cfg.db_thresh,
+            box_thresh=cfg.db_box_thresh,
+            unclip_ratio=cfg.db_unclip_ratio,
+            pool=cfg.db_pool,
+            num_sweeps=cfg.db_sweeps,
+        )
+        # on the host in f32, as the reference scales them
+        boxes = boxes.cpu().numpy() * inv_scale
+        boxes[..., 0::2] = boxes[..., 0::2].clip(0, w - 1)
+        boxes[..., 1::2] = boxes[..., 1::2].clip(0, h - 1)
+        return boxes, scores.cpu().numpy(), valid.cpu().numpy()
+
+    @torch.inference_mode()
+    def crop_logits(self, frames_u8: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        """Crops of the boxes [B, K, 4] (frame coords) from f32 frames,
+        sampled over the whole frame height, through the rec -> log-probs
+        [B, K, T, C] (the reference's ``_crop_logits_fn``)."""
+        _, h, _, _ = frames_u8.shape
+        boxes = expand_boxes_y(boxes, self.config.rec_crop_expand_y, h)
+        crops = crops_tight(frames_u8.float(), boxes, self.rec_h, self.rec_w,
+                            self.config, h, window_rows=h)
+        B, K = crops.shape[:2]
+        crops = rec_normalize(crops.reshape((B * K,) + tuple(crops.shape[2:])))
+        logp = log_softmax(self.rec_forward(crops))
+        return logp.reshape((B, K) + tuple(logp.shape[1:]))
+
+    def _predict_batch_beam(self, frames_u8: torch.Tensor,
+                            origin: Tuple[int, int] = (0, 0)) -> List[Tuple[list, list]]:
+        """Beam decode: the det alone, device log-probs of the crops, then a
+        host prefix beam over each valid box's log-probs, in the reference's
+        ``rec_batch_number`` groups."""
+        B = frames_u8.shape[0]
+        boxes, _, valid = self.detect_batch(frames_u8)
+        logp = self.crop_logits(frames_u8, torch.from_numpy(boxes).to(self.device)).cpu().numpy()
+        todo = [(b, k) for b in range(B) for k in range(self.max_boxes) if valid[b, k]]
+        reads = {}
+        group = max(1, self.config.rec_batch_number)
+        for gi in range(0, len(todo), group):
+            for b, k in todo[gi : gi + group]:
+                ids, score = ctc_prefix_beam_decode(logp[b, k], beam_width=self.beam_width)
+                reads[(b, k)] = (self._to_logical(self.charset.decode_ids(ids)), score)
+        dy, dx = origin
+        out = []
+        for b in range(B):
+            coords, items = [], []
+            for k in range(self.max_boxes):
+                if not valid[b, k]:
+                    continue
+                x0, y0, x1, y1 = boxes[b, k]
+                coords.append((int(x0 + dx), int(x1 + dx), int(y0 + dy), int(y1 + dy)))
+                items.append(reads[(b, k)])
+            coords, items = sort_into_lines(coords, items)
+            out.append(([[(c[0], c[2]), (c[1], c[2]), (c[1], c[3]), (c[0], c[3])]
+                         for c in coords], items))
         return out
 
     def _to_logical(self, text: str) -> str:

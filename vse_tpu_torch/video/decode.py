@@ -1,5 +1,6 @@
-"""Host video decode -> frame batches (the port of the main-path parts of
-``vse_tpu/video/decode.py``: ``probe``, ``FrameStream``, ``read_frames``).
+"""Host video decode -> frame batches (the port of
+``vse_tpu/video/decode.py``: ``probe``, ``FrameStream``, ``read_frames``,
+and the ffmpeg decoder, ``ffmpeg_exe`` and ``_FFmpegCapture``).
 
 A video is either a path, decoded with OpenCV (imported lazily; a clear
 error says so when it is missing), or an ``InMemoryVideo``: decoded uint8
@@ -9,12 +10,22 @@ is stamped ``(k - 1) * 1000 / fps`` ms, which is what OpenCV reports for a
 constant-frame-rate file. The frame queue is plain Python (a reader thread
 and a bounded ``queue.Queue``); the JAX package's native ring buffer is not
 used.
+
+``FrameStream(..., decoder="ffmpeg")`` (``Decoder.FFMPEG``, the config's
+``scanner_decoder``) decodes a file through an ffmpeg rawvideo pipe: the
+binary named by ``$VSE_FFMPEG``, else ``ffmpeg`` on ``PATH``. Without one it
+warns and decodes with OpenCV, as the reference does. Probing and
+``read_frames`` stay on OpenCV, as in the reference.
 """
 
 from __future__ import annotations
 
+import os
 import queue
+import shutil
+import subprocess
 import threading
+import warnings
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
@@ -86,6 +97,84 @@ def probe(video: Video) -> VideoMeta:
         cap.release()
 
 
+def ffmpeg_exe() -> Optional[str]:
+    """The ffmpeg binary: ``$VSE_FFMPEG`` when that file exists, else
+    ``ffmpeg`` on ``PATH``, else None (reference backend/main.py:491-495
+    passes --open_video_ffmpeg to its scanner)."""
+    env = os.environ.get("VSE_FFMPEG")
+    if env and os.path.exists(env):
+        return env
+    return shutil.which("ffmpeg")
+
+
+class _FFmpegCapture:
+    """The ``cv2.VideoCapture`` surface that ``FrameStream`` reads, over an
+    ffmpeg rawvideo pipe: ``read()``, ``get(CAP_PROP_POS_MSEC)``,
+    ``set(CAP_PROP_POS_FRAMES)`` before the first read (an ``-ss`` start),
+    ``release()``. Frames come out BGR, as from OpenCV. A frame's timestamp
+    is the next frame's index / fps, as the reference computes it (a
+    constant frame rate)."""
+
+    def __init__(self, path: str, meta: "VideoMeta"):
+        self.path = path
+        self.meta = meta
+        self._frame_bytes = meta.height * meta.width * 3
+        self._proc = None
+        self._pos = 0  # 0-based index of the next frame read() returns
+        self._cv2 = _cv2()
+
+    def _spawn(self) -> None:
+        exe = ffmpeg_exe()
+        if exe is None:
+            raise FileNotFoundError("ffmpeg binary not found")
+        args = [exe, "-nostdin", "-loglevel", "error"]
+        if self._pos > 0 and self.meta.fps:
+            args += ["-ss", f"{self._pos / self.meta.fps:.6f}"]
+        args += ["-i", self.path, "-f", "rawvideo", "-pix_fmt", "bgr24", "pipe:1"]
+        self._proc = subprocess.Popen(args, stdout=subprocess.PIPE,
+                                      stderr=subprocess.DEVNULL,
+                                      bufsize=self._frame_bytes * 4)
+
+    def set(self, prop, value) -> bool:
+        if prop == self._cv2.CAP_PROP_POS_FRAMES and self._proc is None:
+            self._pos = int(value)
+            return True
+        return False
+
+    def get(self, prop) -> float:
+        if prop == self._cv2.CAP_PROP_POS_MSEC:
+            return self._pos / self.meta.fps * 1000.0 if self.meta.fps else 0.0
+        return 0.0
+
+    def read(self):
+        if self._proc is None:
+            self._spawn()
+        out = self._proc.stdout
+        chunks, need = [], self._frame_bytes
+        while need:
+            b = out.read(need)
+            if not b:
+                return False, None
+            chunks.append(b)
+            need -= len(b)
+        frame = np.frombuffer(b"".join(chunks), np.uint8).reshape(
+            self.meta.height, self.meta.width, 3)
+        self._pos += 1
+        return True, frame
+
+    def release(self) -> None:
+        if self._proc is None:
+            return
+        self._proc.stdout.close()
+        self._proc.terminate()
+        try:
+            self._proc.wait(timeout=5)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            self._proc.wait()
+        self._proc = None
+
+
 @dataclass
 class FrameBatch:
     """A contiguous stack of decoded frames plus their metadata."""
@@ -108,7 +197,8 @@ class FrameStream:
     JAX package's stream does."""
 
     def __init__(self, video: Video, batch_size: int, stride: int = 1,
-                 start_frame: int = 0, end_frame: Optional[int] = None):
+                 start_frame: int = 0, end_frame: Optional[int] = None,
+                 decoder: str = "opencv"):
         self.video = video
         self.meta = probe(video)
         self.batch_size = batch_size
@@ -116,6 +206,16 @@ class FrameStream:
         self.start_frame = start_frame
         self.end_frame = end_frame
         self.frame_to_ms: dict = {}
+        self.decoder = getattr(decoder, "value", decoder)  # Decoder or str
+        if self.decoder not in ("opencv", "ffmpeg"):
+            raise ValueError(f"unknown decoder {decoder!r}")
+        if self.decoder == "ffmpeg" and ffmpeg_exe() is None:
+            warnings.warn(
+                "Decoder.FFMPEG requested but no ffmpeg binary found; "
+                "falling back to OpenCV decode",
+                stacklevel=2,
+            )
+            self.decoder = "opencv"
 
     def _frames(self) -> Iterator[Tuple[np.ndarray, int, float]]:
         """(RGB frame, 1-based frame number, timestamp ms) in decode order,
@@ -125,7 +225,10 @@ class FrameStream:
                 yield self.video.frames[i], i + 1, i * 1000.0 / self.video.fps
             return
         cv2 = _cv2()
-        cap = cv2.VideoCapture(self.video)
+        if self.decoder == "ffmpeg":
+            cap = _FFmpegCapture(self.video, self.meta)
+        else:
+            cap = cv2.VideoCapture(self.video)
         try:
             frame_no = 0
             if self.start_frame > 0:
