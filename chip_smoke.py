@@ -119,6 +119,32 @@ Phases, each timed; any failure raises and the script exits non-zero:
    [8, 576, 960] (20 graph replays between CUDA events, TF32 off), and the
    K1 and K2 launches of each path (``row_launches``).
 
+12. training (``vse_tpu_torch/train/``), after the inference phases:
+   ``train_rec``'s step (``pretrain.rec_step``) and optimizer for
+   ``steps=300, lr=1e-3`` from ``train_rec``'s own init
+   (``assets/smoke/train_rec_init.npz``) for 20 steps on the fixed batches
+   of ``reference_train.json``, each loss within 1% of the JAX step's and
+   the 4 probe crops' K1 reads equal to its (empty on both sides); then 5
+   steps from the committed en head, whose probe reads (real text) must
+   equal the JAX steps' (``tools/make_torch_smoke_fixture.py --train``);
+   K1 against its plain version at the probe's [4, 80, 69]; the warm
+   step's ms at batch 64 and ``F.ctc_loss``'s forward + backward at [64,
+   80, 69] (a yardstick). Then, with ``$VSE_MODELS``, ``$VSE_OPT_DIR`` and
+   ``$VSE_DATA_DIR`` in a temporary directory holding the committed
+   datasets under ``pretrain``'s cache names: ``pretrain rec --steps 300
+   --batch 64 --pregen 4`` through ``pretrain.main`` (the device loop from
+   a fresh init; the mean of the last 10 of its 300 losses below that of
+   the first 10; K1 in the probe decodes, path ``train_rec``); the ms a
+   step and the device-busy share of 20 warm steps of the same loop (host
+   clock, then under the profiler); a fine-tune of a copy of the committed
+   en head, ``pretrain rec --steps <its step + 300> --fresh-opt --lr 1e-4``
+   (path ``train_rec_finetune``), whose head ``OcrEngine(device="cuda")``
+   must read the en smoke bands as it reads them with the committed head
+   (path ``train_rec_engine``); ``pretrain det --steps 200 --batch 16
+   --pregen 16`` (the loss falls, measured likewise) and the ms a step and
+   busy share of 10 warm det steps. The losses are those the device loops
+   return; nothing may be written into ``checkpoints_torch/``.
+
 Each path of phases 4-6 runs twice (cold, warm), and so do latin, arabic,
 korean (phase 7) and japan (phase 8) (the other families once), with the
 launch counts set to 0 just before each run and read just after;
@@ -138,6 +164,7 @@ beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib.util
 import json
@@ -1183,6 +1210,268 @@ def sync_phase(card, by_path):
     return row
 
 
+@contextlib.contextmanager
+def loss_history(name):
+    """The loss of every step that ``device_loop.<name>`` runs while inside
+    (what the loop returns; ``train_rec`` / ``train_det`` drop it)."""
+    from vse_tpu_torch.train import device_loop
+
+    real, seen = getattr(device_loop, name), []
+
+    def spy(**kw):
+        history = real(**kw)
+        seen.extend(history)
+        return history
+
+    setattr(device_loop, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(device_loop, name, real)
+
+
+def falls(history, n=10):
+    """(mean of the first ``n`` losses, mean of the last ``n``)."""
+    return statistics.fmean(history[:n]), statistics.fmean(history[-n:])
+
+
+def busy_share(fn):
+    """(wall s, device-busy share) of ``fn()`` under torch.profiler (device
+    activity only): the union of the device ops' intervals over the wall
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return wall / 1e6, busy / wall
+
+
+def train_phase(card, by_path):
+    """Phase 12: training on the card. Returns its numbers."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from vse_tpu_torch.kernels import ctc_decode as k1
+    from vse_tpu_torch.kernels import keyframe as k2
+    from vse_tpu_torch.models.crnn import CRNNRecognizer
+    from vse_tpu_torch.models.db_detector import DBDetector
+    from vse_tpu_torch.pipeline.ocr_engine import OcrEngine
+    from vse_tpu_torch.train import optim
+    from vse_tpu_torch.train import pretrain as P
+    from vse_tpu_torch.train.device_loop import run_det_device_loop, run_rec_device_loop
+    from vse_tpu_torch.video.synth import SMOKE_FIXTURE, load_fixture
+    from vse_tpu_torch.weights import TORCH_CKPT_DIR, from_jax_params, load_flat
+
+    t_phase = time.perf_counter()
+    failures, out = [], {}
+    with open(os.path.join(SMOKE_FIXTURE, "reference_train.json"), encoding="utf-8") as f:
+        ref = json.load(f)["rec"]
+    rec_npz = os.path.join(SMOKE_FIXTURE, "train_rec_en.npz")
+    with np.load(rec_npz) as z:
+        images, texts = z["images"], [str(t) for t in z["texts"]]
+    charset = P._rec_train_charset("en", False, True)
+    labels, lengths = P.encode_labels(charset, texts, P.rec_train_config(charset).max_label_len)
+    dev = torch.device("cuda")
+    x_all = torch.from_numpy((images.astype(np.float32) / 255.0 - 0.5) / 0.5).to(dev)
+    lab, ln = torch.from_numpy(labels).to(dev), torch.from_numpy(lengths).to(dev)
+    head_npz = os.path.join(TORCH_CKPT_DIR, "rec_en_mobile.npz")
+    committed = sorted(os.listdir(TORCH_CKPT_DIR))
+
+    def steps_from(npz, n):
+        """``n`` of train_rec's steps (optimizer for steps=300, lr=1e-3)
+        from the variables in ``npz`` on the fixture's batches."""
+        model = CRNNRecognizer(charset.vocab_size).to(dev)
+        model.load_state_dict(from_jax_params(load_flat(npz)))
+        opt = optim.Optimizer(P.rec_optimizer(ref["lr"], 100, ref["steps"]), P.trainable(model))
+        losses = [float(P.rec_step(model, opt, x_all[i], lab[i], ln[i]))
+                  for i in torch.tensor(ref["indices"][:n], device=dev)]
+        return model, opt, losses
+
+    # 1. step parity: train_rec's step and optimizer, 20 steps from
+    # train_rec's init (the losses; the probe reads nothing yet on either
+    # side), then 5 from the committed en head (the probe's reads, real
+    # text; its losses of ~1e-4 are printed only)
+    t0 = time.perf_counter()
+    model, opt, losses = steps_from(os.path.join(SMOKE_FIXTURE, "train_rec_init.npz"), 20)
+    gaps = [abs(a - b) / b for a, b in zip(losses, ref["losses"])]
+    for k, (a, b, gap) in enumerate(zip(losses, ref["losses"], gaps)):
+        print(f"rec step {k}: loss {a:.6f} (JAX {b:.6f}), gap {gap:.2e}", flush=True)
+    out["step_parity_max_gap"] = max(gaps)
+    if max(gaps) > 0.01:
+        failures.append(f"rec step parity: a loss {max(gaps):.2%} from the JAX step's (limit 1%)")
+    probe = P.predict_texts(model, x_all[:4], charset)
+    if probe != ref["probe_texts"]:
+        failures.append(f"after 20 steps the probe reads {probe}, JAX {ref['probe_texts']}")
+    head, _, head_losses = steps_from(head_npz, len(ref["head_losses"]))
+    probe = P.predict_texts(head, x_all[:4], charset)
+    out["head_loss_gaps"] = [abs(a - b) / b for a, b in zip(head_losses, ref["head_losses"])]
+    print(f"from the en head, {len(head_losses)} steps: losses {head_losses} (JAX "
+          f"{ref['head_losses']}); probe reads {probe} (JAX {ref['head_probe_texts']})",
+          flush=True)
+    if probe != ref["head_probe_texts"] or not all(probe):
+        failures.append(f"probe reads {probe} against the JAX step's {ref['head_probe_texts']}")
+    # K1 against its plain version at the probe's shape, [4, 80, 69]
+    head.eval()
+    with torch.no_grad():
+        logits = head(x_all[:4]).contiguous()
+    ids, mask, scores = k1.greedy_decode_cuda(logits)
+    p_ids, p_mask, p_scores = k1.collapse(*k1.argmax_lse_plain(logits))
+    if not (torch.equal(ids, p_ids) and torch.equal(mask, p_mask)):
+        failures.append("K1 at the probe's shape: ids or mask differ from the plain version")
+    out["k1_probe_max_abs_err"] = check_close("K1 probe scores", scores, p_scores, 1e-5, 1e-6)
+    del head
+    # the warm step alone, fixed batches, synchronized
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for idx in ref["indices"]:
+        P.rec_step(model, opt, x_all[torch.tensor(idx, device=dev)], lab[idx], ln[idx])
+    torch.cuda.synchronize()
+    out["rec_step_ms"] = (time.perf_counter() - t1) * 1e3 / len(ref["indices"])
+    # F.ctc_loss forward and backward at [64, 80, 69], a yardstick
+    lg = torch.randn(64, 80, charset.vocab_size + 1, device=dev, requires_grad=True)
+    lb, lln = lab[:64], ln[:64]
+
+    def ctc_fwd_bwd():
+        F.ctc_loss(F.log_softmax(lg, -1).transpose(0, 1), lb,
+                   torch.full((64,), 80, device=dev, dtype=torch.long), lln,
+                   reduction="none").mean().backward()
+
+    out["ctc_loss_fwd_bwd_ms"] = loop_us(ctc_fwd_bwd, n=50) / 1e3
+    print(f"rec step at batch 64: {out['rec_step_ms']:.3f} ms warm; F.ctc_loss forward + "
+          f"backward at [64, 80, 69]: {out['ctc_loss_fwd_bwd_ms']:.3f} ms", flush=True)
+    phase("training: step parity", t0)
+
+    def timed_loop(loop, n):
+        """(ms a step, device-busy share) of ``n`` warm steps of ``loop``:
+        once on the host clock, once under the profiler."""
+        loop(n)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loop(n)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3 / n
+        return ms, busy_share(lambda: loop(n))[1]
+
+    names = ("VSE_MODELS", "VSE_OPT_DIR", "VSE_DATA_DIR")
+    saved_env = {k: os.environ.get(k) for k in names}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in names:
+            os.environ[k] = os.path.join(tmp, k.lower())
+            os.makedirs(os.environ[k])
+        try:
+            shutil.copy(rec_npz, P.rec_dataset_path("en", 4, 64))
+            shutil.copy(os.path.join(SMOKE_FIXTURE, "train_det_en.npz"), P.det_dataset_path(16))
+            # 2. the rec device loop at full width, through main, from scratch
+            t0 = time.perf_counter()
+            k1.launches = k2.launches = 0
+            with loss_history("run_rec_device_loop") as history:
+                P.main(["rec", "--language", "en", "--steps", "300", "--batch", "64",
+                        "--pregen", "4"])
+            by_path["train_rec"] = {"K1": k1.launches, "K2": k2.launches}
+            out["rec_loss_first_last_10"] = falls(history)
+            first, last = out["rec_loss_first_last_10"]
+            if not (len(history) == 300 and last < first):
+                failures.append(f"train_rec: the loss did not fall ({first} -> {last})")
+            if by_path["train_rec"]["K1"] < 1:
+                failures.append("train_rec: K1 was never launched by the probe decode")
+            phase("training: rec, 300 steps at batch 64", t0)
+            model = CRNNRecognizer(charset.vocab_size).to(dev)
+            opt = optim.Optimizer(P.rec_optimizer(1e-3, 100, 300), P.trainable(model))
+            out["rec_ms_per_step"], out["rec_busy"] = timed_loop(
+                lambda n: run_rec_device_loop(
+                    raw_imgs=images, labels=labels, lengths=lengths,
+                    step_core=lambda x, a, b: P.rec_step(model, opt, x, a, b),
+                    steps=n, start_step=0, batch=64, seed=0, device=dev, chunk=n), 20)
+            # 3. a fine-tune of the committed en head through main, and the
+            # engine reading the bands with it as with the committed head
+            t0 = time.perf_counter()
+            os.environ["VSE_MODELS"] = os.path.join(tmp, "finetune")
+            os.makedirs(os.environ["VSE_MODELS"])
+            for ext in (".npz", ".vse_meta.json"):
+                shutil.copy(os.path.join(TORCH_CKPT_DIR, "rec_en_mobile" + ext),
+                            os.environ["VSE_MODELS"])
+            start = int(P.load_meta(os.path.join(TORCH_CKPT_DIR, "rec_en_mobile"))["step"])
+            k1.launches = k2.launches = 0
+            with loss_history("run_rec_device_loop") as history:
+                P.main(["rec", "--language", "en", "--steps", str(start + 300), "--batch",
+                        "64", "--pregen", "4", "--fresh-opt", "--lr", "1e-4"])
+            by_path["train_rec_finetune"] = {"K1": k1.launches, "K2": k2.launches}
+            out["finetune_loss_first_last_10"] = falls(history)
+            phase("training: fine-tune of the en head, 300 steps", t0)
+            t0 = time.perf_counter()
+            bands, _ = load_fixture()
+            frames = np.stack([bands[k] for k in sorted(bands)])
+            engine = OcrEngine(language="en", device="cuda")
+            k1.launches = k2.launches = 0
+            res = engine.predict_batch(frames)
+            torch.cuda.synchronize()
+            by_path["train_rec_engine"] = {"K1": k1.launches, "K2": k2.launches}
+            reads = [[t for t, _ in r[1]] for r in res]
+            del engine
+            os.environ["VSE_MODELS"] = TORCH_CKPT_DIR
+            engine = OcrEngine(language="en", device="cuda")
+            want = [[t for t, _ in r[1]] for r in engine.predict_batch(frames)]
+            del engine
+            # the det below writes its head under the temporary directory
+            os.environ["VSE_MODELS"] = os.path.join(tmp, "vse_models")
+            print(f"the fine-tuned head reads the en smoke bands as {reads}, the committed "
+                  f"head as {want}; launches {by_path['train_rec_engine']}", flush=True)
+            if reads != want or not any(any(r) for r in reads):
+                failures.append(f"the fine-tuned head reads {reads}, the committed head {want}")
+            if by_path["train_rec_engine"]["K1"] < 1:
+                failures.append("the engine on the trained head never launched K1")
+            phase("training: the trained head in the engine", t0)
+            # 4. the det device loop
+            t0 = time.perf_counter()
+            with loss_history("run_det_device_loop") as history:
+                P.main(["det", "--steps", "200", "--batch", "16", "--pregen", "16"])
+            out["det_loss_first_last_10"] = falls(history)
+            first, last = out["det_loss_first_last_10"]
+            if not (len(history) == 200 and last < first):
+                failures.append(f"train_det: the loss did not fall ({first} -> {last})")
+            phase("training: det, 200 steps at batch 16", t0)
+            with np.load(P.det_dataset_path(16)) as z:
+                ds = {k: z[k] for k in z.files}
+            model = P.flax_init(DBDetector("mobile", train_outputs=True), 0).to(dev)
+            opt = optim.Optimizer(P.det_optimizer(5e-4, 200), P.trainable(model))
+            out["det_ms_per_step"], out["det_busy"] = timed_loop(
+                lambda n: run_det_device_loop(
+                    ds=ds, step_core=lambda b: P.det_step(model, opt, b), steps=n,
+                    start_step=0, batch=16, seed=0, device=dev, chunk=n), 10)
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    print(f"training on {card}: rec {out['rec_ms_per_step']:.2f} ms a step warm (batch 64), "
+          f"busy {out['rec_busy']:.1%}; det {out['det_ms_per_step']:.2f} ms a step (batch 16), "
+          f"busy {out['det_busy']:.1%}; losses (first 10 -> last 10): rec "
+          f"{out['rec_loss_first_last_10']}, fine-tune {out['finetune_loss_first_last_10']}, "
+          f"det {out['det_loss_first_last_10']}", flush=True)
+    if sorted(os.listdir(TORCH_CKPT_DIR)) != committed:
+        failures.append("training wrote into checkpoints_torch/")
+    if failures:
+        raise AssertionError("phase 12:\n" + "\n".join(failures))
+    phase("training", t_phase)
+    return out
+
+
 def main() -> int:
     t_all = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1227,6 +1516,7 @@ def main() -> int:
     launches, by_path = main_path(card)
     det_ms = accurate_phase(card, by_path)
     rows["K2_sync_gray"] = sync_phase(card, by_path)
+    training = train_phase(card, by_path)
     rows["K2"]["max_abs_err"] = max(rows["K2"]["max_abs_err"], rows["K2_sync_gray"]["max_abs_err"])
     launches = {k: sum(p[k] for p in by_path.values()) for k in ("K1", "K2")}
     from vse_tpu_torch.video.synth import CJK_FAMILIES, SCRIPT_FAMILIES, load_script_fixture
@@ -1241,7 +1531,7 @@ def main() -> int:
     # and 1280-wide band (phases 4-5 and 9), ch's and chinese_cht's C =
     # 21,060, japan's 21,249, ch's 400-wide band
     en_paths = ("keyframe", "fps", "fps_short", "many_keyframe", "many_fps", "service",
-                "keyframe_accurate", "fps_short_accurate", "keyframe_auto")
+                "keyframe_accurate", "fps_short_accurate", "keyframe_auto", "train_rec_engine")
     ch_paths = ("ch_keyframe", "ch_fps_short")
     row_paths = {"K1": en_paths, "K1_c293": ("latin",),
                  "K1_c21060": ch_paths + ("chinese_cht",), "K1_c21249": ("japan",),
@@ -1283,6 +1573,7 @@ def main() -> int:
             entry["at_sync_gray"] = rows["K2_sync_gray"]
         kernels.append(entry)
     print(f"server det device ms per batch: {json.dumps(det_ms)}", flush=True)
+    print(f"training: {json.dumps(training)}", flush=True)
     print(f"[phase] total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

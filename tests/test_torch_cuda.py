@@ -12,6 +12,7 @@ bit through one-pixel frames, whose mean luminance is gray / 1024 exactly.
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -506,3 +507,182 @@ def test_per_frame_detection_launches_k1_once_a_chunk(cuda, tmp_path):
     chunks = -(-16 // cfg.frame_batch) * -(-cfg.frame_batch // cfg.max_batch_size)
     assert (k1.launches, k2.launches) == (chunks, 0) and ex.n_samples == 16
     assert ex.raw_records and all(r.text for r in ex.raw_records)
+
+
+# --- training (vse_tpu_torch/train): the card against the CPU ------------
+# Tolerances: the optimizer's updates within 1e-6 (foreach kernels may
+# contract a multiply-add on the card); loss values rtol 1e-4 and gradients
+# within 1e-3 of the largest (cuDNN's and F.ctc_loss's sum orders, CTC's
+# backward uses atomics); the augmentation within 0.02 on the 0-255 scale
+# (its products sum in another order; the JAX package's own jit and eager
+# runs differ by 0.0054).
+
+
+def _seeded_tree(seed, device):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g).to(device) for s in ((3, 4), (5,), (2, 3, 3))]
+
+
+@pytest.mark.parametrize("chain", ["rec", "det"])
+def test_train_optimizer_on_the_card_equals_cpu(cuda, chain):
+    from vse_tpu_torch.train import optim
+    from vse_tpu_torch.train.pretrain import det_optimizer, rec_optimizer
+
+    outs = {}
+    for dev in ("cpu", cuda):
+        params = _seeded_tree(0, dev)
+        tx = rec_optimizer(1e-2, 2, 8) if chain == "rec" else det_optimizer(1e-2, 101)
+        opt = optim.Optimizer(tx, params)
+        for k in range(6):
+            grads = [g * (3.0 if k % 2 else 0.1) for g in _seeded_tree(k + 1, dev)]
+            opt.step(grads)
+        outs[str(dev)] = ([p.cpu() for p in params], optim.state_to_flat(opt.state))
+    (p_cpu, s_cpu), (p_gpu, s_gpu) = outs.values()
+    for a, b in zip(p_cpu, p_gpu):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-6)
+    assert s_cpu.keys() == s_gpu.keys()
+    for k in s_cpu:
+        np.testing.assert_allclose(s_gpu[k], s_cpu[k], rtol=1e-6, atol=1e-7)
+
+
+def test_train_losses_on_the_card_equal_cpu(cuda):
+    from vse_tpu_torch.train.losses import ctc_rec_loss, db_loss
+
+    g = torch.Generator().manual_seed(3)
+    maps = [torch.rand((2, 64, 96), generator=g) for _ in range(3)]
+    gts = [(torch.rand((2, 64, 96), generator=g) < 0.1).float(), torch.ones(2, 64, 96),
+           0.3 + 0.4 * torch.rand((2, 64, 96), generator=g),
+           (torch.rand((2, 64, 96), generator=g) < 0.3).float()]
+    logits = torch.randn((4, 80, 69), generator=g) * 2
+    labels = torch.randint(1, 69, (4, 20), generator=g)
+    labels[0, :6] = torch.tensor([3, 3, 3, 4, 4, 7])
+    lengths = torch.tensor([6, 20, 1, 12])
+    res = {}
+    for dev in ("cpu", cuda):
+        ms = [m.to(dev).requires_grad_() for m in maps]
+        total, _ = db_loss(*ms, *(t.to(dev) for t in gts))
+        lg = logits.to(dev).requires_grad_()
+        ctc = ctc_rec_loss(lg, labels.to(dev), lengths.to(dev))
+        grads = torch.autograd.grad(total + ctc, ms + [lg])
+        res[str(dev)] = (total.item(), ctc.item(), [gr.cpu() for gr in grads])
+    (d0, c0, g0), (d1, c1, g1) = res.values()
+    assert d1 == pytest.approx(d0, rel=1e-5) and c1 == pytest.approx(c0, rel=1e-5)
+    for a, b in zip(g0, g1):
+        assert (a - b).abs().max() <= 1e-3 * a.abs().max()
+
+
+STEP_LR = {"rec": 1e-3, "det": 5e-4}
+
+
+def _step_on(dev, which):
+    """Two steps of ``rec_step`` / ``det_step`` from equal weights, on a
+    schedule with a warmup of 1: the first at lr 0 (optax's warmup starts at
+    0), the second at the full lr. Returns the losses, and for each step the
+    gradients the optimizer received, its state and the trainable weights
+    before it (on the CPU); then the weights after and the state dict."""
+    from vse_tpu_torch.models.crnn import CRNNRecognizer
+    from vse_tpu_torch.models.db_detector import DBDetector
+    from vse_tpu_torch.train import optim
+    from vse_tpu_torch.train.pretrain import (
+        det_step, flax_init, rec_optimizer, rec_step, trainable,
+    )
+
+    g = torch.Generator().manual_seed(5)
+    if which == "rec":
+        model = flax_init(CRNNRecognizer(68), 0).to(dev)
+        opt = optim.Optimizer(rec_optimizer(STEP_LR[which], 1, 300), trainable(model))
+        x = torch.randn((4, 48, 160, 3), generator=g).to(dev)
+        labels = torch.randint(1, 69, (4, 8), generator=g).to(dev)
+        lengths = torch.tensor([8, 3, 5, 1], device=dev)
+        step = lambda: rec_step(model, opt, x, labels, lengths).item()  # noqa: E731
+    else:
+        model = flax_init(DBDetector("mobile", train_outputs=True), 0).to(dev)
+        # det_optimizer's chain with a warmup of 1
+        opt = optim.Optimizer(
+            optim.adamw(optim.warmup_cosine_decay_schedule(0, STEP_LR[which], 1, 300)),
+            trainable(model))
+        batch = {"det_images": torch.randn((2, 64, 64, 3), generator=g),
+                 "gt_shrink": (torch.rand((2, 64, 64), generator=g) < 0.2).float(),
+                 "gt_shrink_mask": torch.ones(2, 64, 64),
+                 "gt_thresh": 0.3 + 0.4 * torch.rand((2, 64, 64), generator=g),
+                 "gt_thresh_mask": (torch.rand((2, 64, 64), generator=g) < 0.4).float()}
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        step = lambda: det_step(model, opt, batch)[0].item()  # noqa: E731
+    seen = []
+    real = opt.step
+
+    def spy(grads):
+        seen.append(([gr.detach().cpu().clone() for gr in grads], optim.state_to_flat(opt.state),
+                     [p.detach().cpu().clone() for p in opt.params]))
+        real(grads)
+
+    opt.step = spy
+    losses = [step() for _ in range(2)]
+    after = [p.detach().cpu().clone() for p in opt.params]
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    return (losses, seen, after, opt.tx,
+            {k: v.cpu() for k, v in model.state_dict().items()}, names)
+
+
+def _check_steps(cpu, card, lr):
+    """The card's two steps against the CPU's. Losses rtol 1e-4; the first
+    step's gradients, each tensor within 1e-3 of its own largest CPU value
+    (4.0e-5 at worst on an H100), or of the model's largest where its own
+    is at most 1e-4 of that: the tensors whose gradient is 0 in exact
+    arithmetic (``test_torch_train_models.py``: biases before a BatchNorm,
+    and expansion BatchNorm scales that only the epsilon keeps from 0, at
+    2e-5 of the largest or less; the others are at least 2.1e-4 of it);
+    the running statistics rtol 1e-4. The update: the card's weights after the second step equal the
+    CPU optimizer's step on the card's own gradients and state, within 1e-6
+    (so cuDNN's sign flips of near-zero gradients, which Adam turns into
+    full steps, do not enter), and that step moved some weight by over
+    lr / 2. Returns the largest gradient error relative to its bound."""
+    from vse_tpu_torch.train import optim
+
+    (l0, seen0, _, _, s0, names), (l1, seen1, after1, tx, s1, _) = cpu, card
+    assert l1 == pytest.approx(l0, rel=1e-4)
+    want, got = seen0[0][0], seen1[0][0]
+    gmax = max(float(w.abs().max()) for w in want)
+    worst = (0.0, "")
+    for name, w, gr in zip(names, want, got):
+        scale = float(w.abs().max())
+        if scale <= 1e-4 * gmax:
+            assert re.search(r"(project\.bn\.bias|up1\.bias|expand\.bn\.weight)$", name), name
+            scale = gmax
+        worst = max(worst, (float((gr - w).abs().max()) / (1e-3 * scale), name))
+    assert worst[0] <= 1.0, worst
+    grads, state, before = seen1[1]
+    ref = optim.Optimizer(tx, [p.clone() for p in before])
+    ref.state = optim.state_from_flat(state, ref.state)
+    ref.step(grads)
+    moved = max(float((a - b).abs().max()) for a, b in zip(ref.params, before))
+    assert moved > lr / 2, moved
+    for a, b in zip(after1, ref.params):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    for k in s0:
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(s1[k], s0[k], rtol=1e-4, atol=1e-5)
+    return worst[0]
+
+
+@pytest.mark.parametrize("which", ["rec", "det"])
+def test_train_step_on_the_card_equals_cpu(cuda, which):
+    """One rec step and one det step on the card against the CPU from
+    equal weights (``_check_steps`` states the tolerances)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = _check_steps(_step_on("cpu", which), _step_on(cuda, which), STEP_LR[which])
+    print(f"{which}: largest gradient error {worst:.3f} of its bound")
+
+
+def test_train_augment_apply_on_the_card_equals_cpu(cuda):
+    from vse_tpu_torch.train.device_loop import make_rec_augment
+
+    aug = make_rec_augment(48, 320)
+    x = torch.from_numpy(np.load(os.path.join(SMOKE_FIXTURE, "train_rec_en.npz"))["images"][:4]
+                         .astype(np.float32))
+    for seed in range(4):
+        draws = aug.draw(torch.Generator().manual_seed(seed), 4, "cpu")
+        want = aug.apply(draws, x)
+        got = aug.apply({k: v.to(cuda) for k, v in draws.items()}, x.to(cuda)).cpu()
+        assert (got - want).abs().max() <= 0.02

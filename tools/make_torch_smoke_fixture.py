@@ -148,6 +148,39 @@ mobile det, ROADMAP fault 15), default config for en:
                           JAX server det's bf16 probability map of it and
                           the boxes and valid mask of its postprocess
 
+With ``--train``, the training phase's fixtures (en, seed 0):
+
+  train_rec_en.npz        ``images`` [256, 48, 320, 3] u8 and ``texts``:
+                          4 batches of 64 crops drawn by the JAX package's
+                          ``TextRenderer`` with ``rec_render_config()`` in
+                          ``load_or_render_rec_dataset``'s curriculum order
+                          (the file that loader caches for ``--pregen 4
+                          --batch 64``)
+  train_det_en.npz        16 frames [256, 448, 3] u8 and their four f16 DB
+                          label maps, as ``load_or_render_det_dataset``
+                          writes them
+  train_rec_init.npz      ``train_rec``'s initial variables for en, seed 0
+                          (flat flax keys, the layout of
+                          ``checkpoints_torch/rec_*.npz``)
+  reference_train.json    ``{"rec": {"indices", "losses", "probe_texts",
+                          ...}}``: ``train_rec``'s own ``step_core`` and
+                          optimizer for ``steps=300, lr=1e-3`` (captured from
+                          ``vse_tpu.train.pretrain.train_rec``), run 20 steps
+                          from that init on fixed batches of 64 un-augmented
+                          crops (``indices``); each step's loss, and the
+                          greedy reads of the 4 probe crops (``train_rec``'s
+                          probe, the first 4) after step 20 (empty: 20 steps
+                          from scratch read nothing); then ``head_losses``
+                          and ``head_probe_texts``: the same step, with a
+                          fresh optimizer, run 5 steps from the committed en
+                          head (orbax, ``checkpoints/rec_en_mobile``), and
+                          the probe's reads after them (real text). (From
+                          the trained head these crops cost ~1e-4 a
+                          sequence, under the f32 resolution of the CTC
+                          loss, so the loss parity starts from the init.)
+
+Datasets and the init that exist are reused as committed.
+
 Band files that exist are reused as committed (they are rendered only when
 they are missing; a family whose bands are missing from
 ``bands_scripts.npz`` is drawn and added). Run it with JAX on the CPU (it needs PIL, OpenCV and the
@@ -155,6 +188,7 @@ en and ch rec heads):
 
     JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py [--language ch|<family>] [--many]
     JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py --accurate
+    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py --train
 """
 
 from __future__ import annotations
@@ -793,6 +827,135 @@ def small_refs() -> dict:
             "raw": raw}
 
 
+TRAIN_SEED = 0
+TRAIN_CROPS = 256  # --pregen 4 --batch 64
+TRAIN_FRAMES = 16
+PARITY_STEPS = 20
+PARITY_BATCH = 64
+HEAD_STEPS = 5
+
+
+def jax_rec_step_core(dataset, steps: int = 300, lr: float = 1e-3):
+    """``vse_tpu.train.pretrain.train_rec``'s own ``step_core``, its fresh
+    initial variables and optimizer state for en (``steps``, ``lr``, seed
+    0), captured where it hands them to the device loop."""
+    import vse_tpu.train.device_loop as jdl
+    import vse_tpu.train.pretrain as jp
+
+    class Captured(Exception):
+        pass
+
+    seen = {}
+
+    def capture(**kw):
+        seen.update(kw)
+        raise Captured()
+
+    saved = (jp.load_or_render_rec_dataset, jdl.run_rec_device_loop, os.environ.get("VSE_MODELS"))
+    with tempfile.TemporaryDirectory() as tmp:
+        jp.load_or_render_rec_dataset = lambda *a, **k: dataset
+        jdl.run_rec_device_loop = capture
+        os.environ["VSE_MODELS"] = tmp
+        try:
+            jp.train_rec("en", steps, PARITY_BATCH, lr, TRAIN_SEED, pregen=4, fresh=True)
+        except Captured:
+            pass
+        finally:
+            jp.load_or_render_rec_dataset, jdl.run_rec_device_loop = saved[:2]
+            if saved[2] is None:
+                del os.environ["VSE_MODELS"]
+            else:
+                os.environ["VSE_MODELS"] = saved[2]
+    init = {"params": seen["params"], "batch_stats": seen["batch_stats"]}
+    return seen["step_core"], init, seen["opt_state"], seen["labels"], seen["lengths"]
+
+
+def main_train() -> None:
+    import jax
+    import jax.numpy as jnp
+
+    from vse_tpu.core.charset import get_charset
+    from vse_tpu.core.registry import init_or_load, models_root
+    from vse_tpu.models.crnn import CRNNRecognizer
+    from vse_tpu.ops.ctc import ctc_greedy_decode, decode_batch_to_texts
+    from vse_tpu.train.pretrain import _rec_train_charset
+    from vse_tpu.train.synth import SynthConfig, TextRenderer, rec_render_config
+
+    rec_path = os.path.join(OUT, "train_rec_en.npz")
+    det_path = os.path.join(OUT, "train_det_en.npz")
+    if os.path.exists(rec_path):
+        with np.load(rec_path) as z:
+            images, texts = z["images"], [str(t) for t in z["texts"]]
+    else:
+        # the rec dataset, as load_or_render_rec_dataset renders it
+        r = TextRenderer(_rec_train_charset("en", False, True), rec_render_config(),
+                         seed=TRAIN_SEED)
+        imgs, texts = [], []
+        for bi in range(TRAIN_CROPS):
+            r.cfg.difficulty = min(1.0, 2.0 * bi / TRAIN_CROPS)
+            img, text = r.render_line()
+            imgs.append(img)
+            texts.append(text)
+        images = np.stack(imgs)
+        np.savez_compressed(rec_path, images=images, texts=np.array(texts))
+    if not os.path.exists(det_path):
+        # the det dataset, as load_or_render_det_dataset renders it
+        r = TextRenderer(get_charset("en"), SynthConfig(det_h=256, det_w=448), seed=TRAIN_SEED)
+        det = {k: [] for k in ("images", "gt_shrink", "gt_shrink_mask", "gt_thresh",
+                               "gt_thresh_mask")}
+        for _ in range(TRAIN_FRAMES):
+            img, boxes = r.render_frame()
+            det["images"].append(img)
+            for k, v in r.det_labels(boxes).items():
+                det[k].append(v)
+        np.savez_compressed(det_path, images=np.stack(det.pop("images")),
+                            **{k: np.stack(v).astype(np.float16) for k, v in det.items()})
+
+    step_core, variables, opt_state, labels, lengths = jax_rec_step_core((images, texts))
+    from flax.traverse_util import flatten_dict
+
+    init_path = os.path.join(OUT, "train_rec_init.npz")
+    if not os.path.exists(init_path):
+        np.savez_compressed(init_path, **{
+            "/".join(k): np.asarray(v)
+            for k, v in flatten_dict(jax.device_get(variables)).items()})
+    step = jax.jit(step_core)
+    charset = _rec_train_charset("en", False, True)
+    rec = CRNNRecognizer(vocab_size=charset.vocab_size, dtype=jnp.float32)
+    indices = np.random.default_rng(12).integers(0, TRAIN_CROPS, (PARITY_STEPS, PARITY_BATCH))
+    norm = ((images.astype(np.float32) / 255.0) - 0.5) / 0.5
+
+    def run(variables, n):
+        """``n`` steps from ``variables`` with a fresh optimizer state (the
+        captured one is the optimizer's init: zero moments, count 0); each
+        step's loss and the probe's reads after the last."""
+        params, bs, state = variables["params"], variables["batch_stats"], opt_state
+        losses = []
+        for k in range(n):
+            idx = indices[k]
+            params, bs, state, loss = step(params, bs, state, jnp.asarray(norm[idx]),
+                                           jnp.asarray(labels[idx]), jnp.asarray(lengths[idx]))
+            losses.append(float(loss))
+            print(f"step {k}: loss {losses[-1]:.6f}", flush=True)
+        logits = rec.apply({"params": params, "batch_stats": bs}, jnp.asarray(norm[:4]))
+        ids, mask, _ = ctc_greedy_decode(logits)
+        return losses, decode_batch_to_texts(ids, mask, charset)
+
+    losses, probe = run(variables, PARITY_STEPS)
+    print("probe", probe, "truth", texts[:4])
+    # the committed en head (orbax), restored as the JAX engine restores it
+    head, loaded = init_or_load(rec, jnp.zeros((1, 48, 320, 3)),
+                                os.path.join(models_root(), "rec_en_mobile"))
+    assert loaded, "the JAX en head did not restore"
+    head_losses, head_probe = run(head, HEAD_STEPS)
+    print("probe from the en head", head_probe)
+    refs = read_json("reference_train.json")
+    refs["rec"] = {"steps": 300, "lr": 1e-3, "batch": PARITY_BATCH, "indices": indices.tolist(),
+                   "losses": losses, "probe_texts": probe, "probe_truth": texts[:4],
+                   "head_losses": head_losses, "head_probe_texts": head_probe}
+    write_json("reference_train.json", refs)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--language", default="en",
@@ -803,8 +966,13 @@ def main() -> None:
                     help="write the sync phase's references instead")
     ap.add_argument("--accurate", action="store_true",
                     help="write the accurate and auto modes' references instead")
+    ap.add_argument("--train", action="store_true",
+                    help="write the training phase's fixtures instead")
     args = ap.parse_args()
     os.makedirs(OUT, exist_ok=True)
+    if args.train:
+        main_train()
+        return
     if args.accurate:
         main_accurate()
         return

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Profile one warm run of one of the port's paths on one CUDA card.
 
-    python3 tools/profile_torch_main_path.py [--path keyframe|fps] \\
+    python3 tools/profile_torch_main_path.py [--path keyframe|fps|train_rec|train_det] \\
         [--language en|ch|japan|chinese_cht] [--mode fast|auto|accurate] \\
         [--out TRACE.json]
 
@@ -22,6 +22,13 @@ copies) with the most device time, and the device-busy share: the union of the d
 intervals over the profiled wall time. The Chrome trace goes to ``--out``
 (git-ignored ``chiprun_out/`` by default). When the profiler records no
 device time, it says so and exits non-zero.
+
+``--path train_rec`` / ``train_det`` profile training instead: the device
+loop (``vse_tpu_torch/train/device_loop.py``) on the committed dataset
+(``assets/smoke/train_rec_en.npz``, batch 64 at 48 x 320;
+``train_det_en.npz``, batch 16 at 256 x 448) from a fresh init with the
+optimizer of a 300-step run, 20 warm-up steps, then 20 steps profiled;
+it prints ms a step besides the rest.
 """
 
 from __future__ import annotations
@@ -65,7 +72,8 @@ RECIPES = {"en": ("recipe.json", "recipe_fps.json"),
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=["keyframe", "fps"], default="keyframe")
+    ap.add_argument("--path", choices=["keyframe", "fps", "train_rec", "train_det"],
+                    default="keyframe")
     ap.add_argument("--language", choices=sorted(RECIPES), default="en")
     ap.add_argument("--mode", choices=["fast", "auto", "accurate"], default="fast")
     ap.add_argument("--out", default=None,
@@ -77,7 +85,6 @@ def main() -> int:
                                    f"profile_{args.language}_{args.path}{suffix}.json")
     sys.path.insert(0, ROOT)
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
@@ -95,6 +102,18 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if args.path.startswith("train_"):
+        run, label = training_run(args.path)
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        print(f"{label}: {TRAIN_STEPS} steps in {wall / 1e6:.4f} s under the profiler, "
+              f"{wall / 1e3 / TRAIN_STEPS:.3f} ms a step", flush=True)
+        return summarize(prof, wall, out)
     name = RECIPES[args.language][args.path == "fps"]
     if name is None:
         print(f"profile_torch_main_path.py: {args.language} has no {args.path} clip",
@@ -118,6 +137,49 @@ def main() -> int:
             wall = (time.perf_counter() - t0) * 1e6
     print(f"{args.language} {args.path} path, mode {args.mode}, det {engine.spec.det_variant}, warm run: pass seconds { {k: round(v, 4) for k, v in ex.pass_seconds.items()} }, "
           f"{wall / 1e6:.4f} s under the profiler", flush=True)
+    return summarize(prof, wall, out)
+
+
+TRAIN_STEPS = 20
+
+
+def training_run(path: str):
+    """(a callable running TRAIN_STEPS steps of the path's device loop,
+    its label). The model and optimizer persist across calls."""
+    import numpy as np
+
+    from vse_tpu_torch.device import resolve_device
+    from vse_tpu_torch.models.crnn import CRNNRecognizer
+    from vse_tpu_torch.models.db_detector import DBDetector
+    from vse_tpu_torch.train import optim
+    from vse_tpu_torch.train import pretrain as P
+    from vse_tpu_torch.train.device_loop import run_det_device_loop, run_rec_device_loop
+    from vse_tpu_torch.video.synth import SMOKE_FIXTURE
+
+    dev = resolve_device("cuda")
+    kw = dict(steps=TRAIN_STEPS, start_step=0, seed=0, device=dev, chunk=TRAIN_STEPS)
+    if path == "train_rec":
+        with np.load(os.path.join(SMOKE_FIXTURE, "train_rec_en.npz")) as z:
+            images, texts = z["images"], [str(t) for t in z["texts"]]
+        charset = P._rec_train_charset("en", False, True)
+        labels, lengths = P.encode_labels(charset, texts, 24)
+        model = P.flax_init(CRNNRecognizer(charset.vocab_size), 0).to(dev)
+        opt = optim.Optimizer(P.rec_optimizer(1e-3, 100, 300), P.trainable(model))
+        return (lambda: run_rec_device_loop(
+            raw_imgs=images, labels=labels, lengths=lengths, batch=64,
+            step_core=lambda x, a, b: P.rec_step(model, opt, x, a, b), **kw),
+            "train_rec, batch 64 at 48 x 320")
+    with np.load(os.path.join(SMOKE_FIXTURE, "train_det_en.npz")) as z:
+        ds = {k: z[k] for k in z.files}
+    model = P.flax_init(DBDetector("mobile", train_outputs=True), 0).to(dev)
+    opt = optim.Optimizer(P.det_optimizer(5e-4, 300), P.trainable(model))
+    return (lambda: run_det_device_loop(ds=ds, batch=16,
+                                        step_core=lambda b: P.det_step(model, opt, b), **kw),
+            "train_det, batch 16 at 256 x 448")
+
+
+def summarize(prof, wall: float, out: str) -> int:
+    from torch.autograd import DeviceType
 
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     total = sum(e.time_range.end - e.time_range.start for e in dev)

@@ -23,7 +23,9 @@ import os
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
-from vse_tpu_torch.core.hangul import FINALS, INITIALS, MEDIALS, compose, is_syllable
+from vse_tpu_torch.core.hangul import (
+    FINALS, INITIALS, MEDIALS, compose, decompose_indices, is_syllable,
+)
 
 # Deterministic ASCII charset (printable ASCII minus control chars).
 EN_CHARS = (
@@ -81,16 +83,29 @@ class Charset:
     """Immutable charset with the CTC blank at index 0.
 
     ``aliases`` records the (variant, canonical) pairs folded out of the
-    classes by ``aliased``; decoding never emits a variant."""
+    classes by ``aliased``; decoding never emits a variant, and ``encode``
+    maps a variant onto its canonical class. ``fold_case`` (set by
+    ``folded``) lowercases text at ``encode``."""
 
     name: str
     chars: Tuple[str, ...]
     use_space_char: bool = True
     aliases: Tuple[Tuple[str, str], ...] = ()
+    fold_case: bool = False
 
     def __post_init__(self):
         if self.use_space_char and " " not in self.chars:
             object.__setattr__(self, "chars", tuple(self.chars) + (" ",))
+        object.__setattr__(self, "_index", {c: i + 1 for i, c in enumerate(self.chars)})
+        object.__setattr__(self, "_alias_map", dict(self.aliases))
+
+    def encode(self, text: str) -> List[int]:
+        """Text -> label ids (unknown chars dropped, like PP-OCR's encoder)."""
+        if self.fold_case:
+            text = text.lower()
+        if self._alias_map:
+            text = "".join(self._alias_map.get(c, c) for c in text)
+        return [self._index[c] for c in text if c in self._index]
 
     @property
     def vocab_size(self) -> int:
@@ -105,14 +120,14 @@ class Charset:
     def without_space(self) -> "Charset":
         """Space-class-free variant."""
         return Charset(self.name, tuple(c for c in self.chars if c != " "), False,
-                       self.aliases)
+                       self.aliases, self.fold_case)
 
     def aliased(self, alias_map: Dict[str, str]) -> "Charset":
         """Homoglyph-folded variant: each alias key loses its class (its
         canonical value keeps one)."""
         return Charset(
             self.name, tuple(c for c in self.chars if c not in alias_map),
-            self.use_space_char, tuple(sorted(alias_map.items())),
+            self.use_space_char, tuple(sorted(alias_map.items())), self.fold_case,
         )
 
     def folded(self) -> "Charset":
@@ -122,7 +137,7 @@ class Charset:
         for c in self.chars:
             if c.lower() not in seen:
                 seen.append(c.lower())
-        return Charset(self.name, tuple(seen), self.use_space_char)
+        return Charset(self.name, tuple(seen), self.use_space_char, fold_case=True)
 
     @classmethod
     def from_file(cls, name: str, path: str, use_space_char: bool = True) -> "Charset":
@@ -151,7 +166,31 @@ class JamoCharset(Charset):
     """A korean charset factored into positional-jamo classes: 19 initials,
     21 medials and 27 finals beside the non-Hangul characters. Decoding
     recomposes each (initial, medial[, final]) run into its syllable; a
-    lone jamo decodes to its compatibility form (ㅋㅋㅋ)."""
+    lone jamo decodes to its compatibility form (ㅋㅋㅋ). ``render_chars``
+    keeps the syllable-level alphabet that training text is drawn in; only
+    the labels factor."""
+
+    render_chars: Tuple[str, ...] = ()
+
+    def encode(self, text: str) -> List[int]:
+        idx = self._index
+        out: List[int] = []
+        for c in text:
+            if is_syllable(c):
+                l, v, t = decompose_indices(c)
+                out.append(idx[_CHOSEONG[l]])
+                out.append(idx[_JUNGSEONG[v]])
+                if t:
+                    out.append(idx[_JONGSEONG[t - 1]])
+            elif c in idx:
+                out.append(idx[c])
+            elif c in INITIALS:  # standalone compatibility consonant
+                out.append(idx[_CHOSEONG[INITIALS.index(c)]])
+            elif c in MEDIALS:
+                out.append(idx[_JUNGSEONG[MEDIALS.index(c)]])
+            elif c in FINALS:  # final-only compounds (ㄳ ㄵ ...)
+                out.append(idx[_JONGSEONG[FINALS.index(c) - 1]])
+        return out
 
     def decode_ids(self, ids: Sequence[int]) -> str:
         toks = [self.chars[i - 1] for i in ids if 1 <= i <= len(self.chars)]
@@ -192,7 +231,7 @@ def to_jamo(base: Charset) -> JamoCharset:
         if c != " " and not is_syllable(c) and not 0x3130 <= ord(c) < 0x3190
     )
     return JamoCharset(base.name, keep + _CHOSEONG + _JUNGSEONG + _JONGSEONG,
-                       base.use_space_char)
+                       base.use_space_char, render_chars=base.chars)
 
 
 _LOADED: Dict[str, Charset] = {}

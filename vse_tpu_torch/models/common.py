@@ -10,9 +10,13 @@ Parity notes against the flax reference:
 - the MobileNetV3 hard-sigmoid is ``clip(x/6 + 0.5, 0, 1)`` (the PP-OCR det
   SE uses a different one, see ``ppocr_det.py``).
 - the SE mid width is ``make_divisible(C // 4)``.
+- BatchNorm in training mode (``BatchNorm``) is flax's: batch mean and
+  biased variance, and running statistics updated as ``0.9 * running +
+  0.1 * batch`` with the *biased* variance (``nn.BatchNorm2d`` would store
+  the unbiased one).
 
 Each block also has ``forward_bf16``, the reference's bf16 numerics
-(``models/bf16.py``).
+(``models/bf16.py``), for inference; training runs ``forward`` in f32.
 """
 
 from __future__ import annotations
@@ -62,6 +66,27 @@ def same_pad(x: torch.Tensor, kernel: Tuple[int, int], strides: Tuple[int, int])
     return F.pad(x, pads)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-5) whose training mode is flax's
+    ``BatchNorm(use_running_average=False, momentum=0.9)``: normalize by
+    the batch mean and biased variance (one fused kernel each way, as
+    ``F.batch_norm`` computes them; flax's ``mean(x^2) - mean^2`` gives the
+    same values but for f32 rounding), and move the running statistics by
+    0.1 towards the batch's with the variance biased."""
+
+    def __init__(self, ch: int):
+        super().__init__(ch, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+            self.running_var.mul_(0.9).add_(var, alpha=0.1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class ConvBNAct(nn.Module):
     """Conv2D ("SAME", no bias) + BatchNorm + activation; groups>1 is
     depthwise."""
@@ -73,7 +98,7 @@ class ConvBNAct(nn.Module):
         self.strides = tuple(strides)
         self.conv = nn.Conv2d(cin, cout, self.kernel, self.strides,
                               groups=groups, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn = BatchNorm(cout)
         self.act = ACTS[act]
         self.act_name = act
 

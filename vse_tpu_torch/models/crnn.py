@@ -22,19 +22,35 @@ from vse_tpu_torch.models.mobilenet_v3 import MobileNetV3Rec
 
 
 class CRNNRecognizer(nn.Module):
-    """The mobile head: MobileNetV3-small x0.5, BiLSTM hidden 48. ``hidden``
-    / ``cnn_scale`` override those defaults (a head records them in its
-    vse_meta.json). The server variant is not ported yet."""
+    """variant "mobile": MobileNetV3-small x0.5, BiLSTM hidden 48; "server":
+    MobileNetV3-large x1.0, hidden 256. ``hidden`` / ``cnn_scale`` override
+    those defaults (a head records them in its vse_meta.json).
 
-    def __init__(self, vocab_size: int, hidden: int = 0, cnn_scale: float = 0.0):
+    flax's LSTM cell has one bias a gate, on its hidden dense;
+    ``nn.LSTM``'s ``bias_ih`` stays zero and frozen (``requires_grad``
+    False), so the effective bias is ``bias_hh`` alone and an optimizer
+    moves it as the JAX package's moves its one bias."""
+
+    def __init__(self, vocab_size: int, hidden: int = 0, cnn_scale: float = 0.0,
+                 variant: str = "mobile"):
         super().__init__()
+        if variant not in ("mobile", "server"):
+            raise ValueError(f"unknown rec variant {variant}")
         self.bf16 = False
-        hid = hidden or 48
-        self.backbone = MobileNetV3Rec(cnn_scale or 0.5)
+        large = variant == "server"
+        hid = hidden or (256 if large else 48)
+        self.backbone = MobileNetV3Rec(cnn_scale or (1.0 if large else 0.5),
+                                       arch="large" if large else "small")
         feat = self.backbone.out_channels
         self.lstm1 = nn.LSTM(feat, hid, batch_first=True, bidirectional=True)
         self.lstm2 = nn.LSTM(2 * hid, hid, batch_first=True, bidirectional=True)
         self.ctc_fc = nn.Linear(2 * hid, vocab_size + 1)
+        with torch.no_grad():
+            for lstm in (self.lstm1, self.lstm2):
+                for name, p in lstm.named_parameters():
+                    if name.startswith("bias_ih"):
+                        p.zero_()
+                        p.requires_grad_(False)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images: [B, H, W, 3] normalized crops -> logits [B, W//4, C]."""

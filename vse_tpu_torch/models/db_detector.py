@@ -34,26 +34,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vse_tpu_torch.models import bf16 as B16
-from vse_tpu_torch.models.common import ConvBNAct, InvertedResidual, make_divisible, same_pad
-
-# (kernel, expand, out, use_se, act, stride) — MobileNetV3-large
-LARGE_CFG = [
-    (3, 16, 16, False, "relu", 1),
-    (3, 64, 24, False, "relu", 2),
-    (3, 72, 24, False, "relu", 1),
-    (5, 72, 40, True, "relu", 2),
-    (5, 120, 40, True, "relu", 1),
-    (5, 120, 40, True, "relu", 1),
-    (3, 240, 80, False, "hardswish", 2),
-    (3, 200, 80, False, "hardswish", 1),
-    (3, 184, 80, False, "hardswish", 1),
-    (3, 184, 80, False, "hardswish", 1),
-    (3, 480, 112, True, "hardswish", 1),
-    (3, 672, 112, True, "hardswish", 1),
-    (5, 672, 160, True, "hardswish", 2),
-    (5, 960, 160, True, "hardswish", 1),
-    (5, 960, 160, True, "hardswish", 1),
-]
+from vse_tpu_torch.models.common import BatchNorm, ConvBNAct, InvertedResidual, make_divisible, same_pad
+from vse_tpu_torch.models.mobilenet_v3 import LARGE_CFG
 
 
 def upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -216,7 +198,7 @@ class DBHead(nn.Module):
         c = in_channels // 4
         self.conv = ConvBNAct(in_channels, c, (3, 3), act="relu")
         self.up1 = nn.ConvTranspose2d(c, c, 2, stride=2)
-        self.bn = nn.BatchNorm2d(c, eps=1e-5)
+        self.bn = BatchNorm(c)
         self.up2 = nn.ConvTranspose2d(c, 1, 2, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -233,9 +215,16 @@ class DBHead(nn.Module):
 
 class DBDetector(nn.Module):
     """Normalized NHWC images [B, H, W, 3] (H, W multiples of 32) -> DB
-    probability map [B, H, W] in f32."""
+    probability map [B, H, W] in f32.
 
-    def __init__(self, variant: str = "server", depths: Sequence[int] = (3, 4, 6, 3)):
+    ``train_outputs=True`` adds the threshold head ``head_thresh`` (the
+    flax module's of the same name) and makes ``forward`` return ``(prob,
+    thresh, binary)``, with ``binary = sigmoid(50 (prob - thresh))``, the
+    differentiable binarization the DB loss reads (flax's module returns
+    it also for ``train=True``, where it builds the threshold head too)."""
+
+    def __init__(self, variant: str = "server", depths: Sequence[int] = (3, 4, 6, 3),
+                 train_outputs: bool = False):
         super().__init__()
         if variant == "server":
             self.backbone = ResNetDet(depths)
@@ -248,11 +237,17 @@ class DBDetector(nn.Module):
         self.variant = variant
         self.fpn = DBFPN(self.backbone.out_channels, fpn_ch)
         self.head = DBHead(fpn_ch)
+        self.head_thresh = DBHead(fpn_ch) if train_outputs else None
         self.bf16 = False
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor):
         x = images.permute(0, 3, 1, 2)
         if self.bf16:
             return self.head.forward_bf16(
                 self.fpn.forward_bf16(self.backbone.forward_bf16(x)))[:, 0]
-        return self.head(self.fpn(self.backbone(x)))[:, 0]
+        fused = self.fpn(self.backbone(x))
+        prob = self.head(fused)[:, 0]
+        if self.head_thresh is None:
+            return prob
+        thresh = self.head_thresh(fused)[:, 0]
+        return prob, thresh, torch.sigmoid(50.0 * (prob - thresh))

@@ -1,5 +1,6 @@
-"""MobileNetV3-small recognition backbone (the port of
-``vse_tpu/models/mobilenet_v3.py::MobileNetV3Rec`` for the mobile heads)."""
+"""MobileNetV3 recognition backbone (the port of
+``vse_tpu/models/mobilenet_v3.py::MobileNetV3Rec``): small x0.5 for the
+mobile heads, large x1.0 for the server head."""
 
 from __future__ import annotations
 
@@ -11,6 +12,24 @@ from vse_tpu_torch.models import bf16 as B16
 from vse_tpu_torch.models.common import ConvBNAct, InvertedResidual, make_divisible
 
 # (kernel, expand, out, use_se, act, stride)
+LARGE_CFG = [
+    (3, 16, 16, False, "relu", 1),
+    (3, 64, 24, False, "relu", 2),
+    (3, 72, 24, False, "relu", 1),
+    (5, 72, 40, True, "relu", 2),
+    (5, 120, 40, True, "relu", 1),
+    (5, 120, 40, True, "relu", 1),
+    (3, 240, 80, False, "hardswish", 2),
+    (3, 200, 80, False, "hardswish", 1),
+    (3, 184, 80, False, "hardswish", 1),
+    (3, 184, 80, False, "hardswish", 1),
+    (3, 480, 112, True, "hardswish", 1),
+    (3, 672, 112, True, "hardswish", 1),
+    (5, 672, 160, True, "hardswish", 2),
+    (5, 960, 160, True, "hardswish", 1),
+    (5, 960, 160, True, "hardswish", 1),
+]
+
 SMALL_CFG = [
     (3, 16, 16, True, "relu", 2),
     (3, 72, 24, False, "relu", 2),
@@ -33,13 +52,14 @@ class MobileNetV3Rec(nn.Module):
     stem); later ones stride (2, 1) so W survives as the CTC sequence axis.
     The remaining H is max-pooled away."""
 
-    def __init__(self, scale: float = 0.5):
+    def __init__(self, scale: float = 0.5, arch: str = "small"):
         super().__init__()
+        cfg = LARGE_CFG if arch == "large" else SMALL_CFG
         c = make_divisible(16 * scale)
         self.stem = ConvBNAct(3, c, (3, 3), (2, 2), act="hardswish")
         blocks = []
         downsamples_seen = 0
-        for k, exp, out, use_se, act, stride in SMALL_CFG:
+        for k, exp, out, use_se, act, stride in cfg:
             if stride == 2:
                 strides = (2, 2) if downsamples_seen == 0 else (2, 1)
                 downsamples_seen += 1
@@ -51,7 +71,7 @@ class MobileNetV3Rec(nn.Module):
             ))
             c = cout
         self.blocks = nn.ModuleList(blocks)
-        self.out_channels = make_divisible(576 * scale)
+        self.out_channels = make_divisible((960 if arch == "large" else 576) * scale)
         self.last = ConvBNAct(c, self.out_channels, (1, 1), act="hardswish")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Prefix beam search for CTC on the host (the port of
-``vse_tpu/ops/ctc.py::ctc_prefix_beam_decode``, a copy of its numpy code).
+``vse_tpu/ops/ctc.py::ctc_prefix_beam_decode``, a copy of its numpy code),
+and ``decode_batch_to_texts``, which turns a greedy decode into strings.
 
 The engine's ``decode="beam"`` option runs it over log-probs that the rec
 forward computes on the device (``OcrEngine._predict_batch_beam``); the
@@ -66,3 +67,11 @@ def ctc_prefix_beam_decode(
     total = logsumexp2(pb, pnb)
     n = max(1, len(best_prefix))
     return list(best_prefix), float(np.exp(total / n))
+
+
+def decode_batch_to_texts(ids, mask, charset) -> List[str]:
+    """Host-side: greedy decode output (ids, mask as arrays) -> strings."""
+    ids = np.asarray(ids)
+    mask = np.asarray(mask)
+    return [charset.decode_ids([int(i) for i, m in zip(row_ids, row_mask) if m])
+            for row_ids, row_mask in zip(ids, mask)]

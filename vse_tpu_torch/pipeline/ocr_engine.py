@@ -226,12 +226,13 @@ class OcrEngine:
             vocab_size=self.charset.vocab_size,
             hidden=int(rec_meta.get("hidden", 0) or 0),
             cnn_scale=float(rec_meta.get("cnn_scale", 0.0) or 0.0),
+            variant=rec_meta.get("variant", self.rec_variant),
         )
         self.rec_model.load_state_dict(
             from_jax_params(load_rec_flat(self.family, self.rec_variant)))
         if self.spec.det_variant == "server":
             self.det_model = DBDetector("server")
-            self.det_model.load_state_dict(load_det_server())
+            self.det_model.load_state_dict(load_det_server(self.spec.det_ckpt))
         else:
             self.det_model = PPOCRv3DetMobile()
             self.det_model.load_state_dict(load_det_npz())

@@ -1,0 +1,3 @@
+"""Training for the port (the counterpart of ``vse_tpu/train/``): the
+optimizer, the losses, the synthetic renderer, the device-resident loops and
+``python -m vse_tpu_torch.train.pretrain rec|det|render``."""
