@@ -145,6 +145,34 @@ Phases, each timed; any failure raises and the script exits non-zero:
    busy share of 10 warm det steps. The losses are those the device loops
    return; nothing may be written into ``checkpoints_torch/``.
 
+13. the last modules (``eval.py``, ``utils/``, ``parallel/``,
+   ``train/steps.py``): (a) the en keyframe clip through
+   ``OcrEngine(mesh=make_mesh())`` at the card count and through a
+   two-replica mesh on ``cuda:0`` (paths ``mesh_keyframe`` and
+   ``mesh_keyframe_2x``), each SRT equal to ``reference_keyframe.srt``
+   and K1's launches printed per replica; then the clip's 45 OCR samples
+   as one batch of 45 (padded to 46 on two replicas): ids, masks, boxes,
+   scores and valid flags equal to the single-device engine's; (b)
+   ``multihost.initialize`` at world size 1 on NCCL (a localhost
+   rendezvous) and 5 joint det + rec steps (``train/steps.py``) at full
+   width (det 16 x 256 x 448 from ``train_det_en.npz``, rec 64 x 48 x 320
+   from ``train_rec_en.npz``) from the JAX ``init_state``
+   (``train_joint_init.npz``), each loss within 1% of the JAX step's
+   (``reference_joint.json``, ``tools/make_torch_smoke_fixture.py
+   --joint``), with TF32 on before the step is made (the step must turn
+   it off); the ms a step (10 warm steps after those 5) and the
+   device-busy share; the process group
+   destroyed (the step runs neither kernel, so it is no path of
+   ``launches_by_path``); (c) every SRT of phases 4-12 scored with the
+   port's ``evaluate_srt`` against its JAX reference (line F1 and CER;
+   F1 1.0 and CER 0 where the SRT is byte-equal); (d) one warm en keyframe
+   pass (path ``traced_keyframe``) under ``trace_context`` with an
+   ``annotate`` span: the Chrome trace must hold the span and as many host
+   launch records of K1 and K2 (each in a span around its launching
+   function) as the launch counters count, and their device records must
+   name the kernels (the profiler drops a few device records in a
+   long-lived process; the count of those it kept is printed).
+
 Each path of phases 4-6 runs twice (cold, warm), and so do latin, arabic,
 korean (phase 7) and japan (phase 8) (the other families once), with the
 launch counts set to 0 just before each run and read just after;
@@ -183,6 +211,8 @@ GRAPH_LAUNCHES = 100  # kernel launches captured in one CUDA graph
 SCORE_ATOL = 0.005  # an OCR line's score against the JAX package's
 REPLAYS = 5
 WALL_CALLS = 200
+# (label, SRT written, its JAX reference) of every path; phase 13 scores them
+WRITTEN_SRTS = []
 # ROADMAP fault 11: the det's convolutions sum in another order than XLA's
 # on the CPU (cuDNN here), which moves a det box by up to 2 px at the
 # families' band shape, or keeps it as an integer but not as a float; a
@@ -552,6 +582,7 @@ def drive(label, clip, area, reference, engine, card, spy=None, runs=("cold", "w
                 f"{label}: SRT differs from the reference:\n--- got\n{got}\n--- want\n{reference}")
     print(f"{label}: SRT {'equals' if got == reference else 'matches'} the JAX reference "
           f"({reference.count('-->')} cues, timings and text)", flush=True)
+    WRITTEN_SRTS.append((label, got, reference))
     return launches, ex
 
 
@@ -781,6 +812,7 @@ def many_paths(card, tmp, by_path):
             with open(path, encoding="utf-8") as f:
                 got = f.read()
             want = refs["keyframe" if area else "fps"][name]
+            WRITTEN_SRTS.append((f"{key} {name}", got, want))
             if got != want:
                 failures.append(f"{key} {name}: SRT differs from the JAX extract_many's:\n"
                                 f"--- got\n{got}\n--- want\n{want}")
@@ -809,8 +841,10 @@ def many_paths(card, tmp, by_path):
             continue
         with open(task.srt_path, encoding="utf-8") as f, \
                 open(os.path.join(SMOKE_FIXTURE, ref), encoding="utf-8") as g:
-            if f.read() != g.read():
-                failures.append(f"service task: SRT differs from {ref}")
+            got, want = f.read(), g.read()
+        WRITTEN_SRTS.append((f"service {ref}", got, want))
+        if got != want:
+            failures.append(f"service task: SRT differs from {ref}")
     launches = by_path["service"]
     print(f"service queue on {card}: {[t.status.value for t in tasks]}, launches {launches}",
           flush=True)
@@ -1169,6 +1203,7 @@ def sync_phase(card, by_path):
                 by_path[path] = {"K1": 0, "K2": k2.launches}
                 with open(out, encoding="utf-8") as f:
                     got = f.read()
+                WRITTEN_SRTS.append((path, got, ref[key]))
                 used, other = ("device", "numpy") if flag == "1" else ("numpy", "device")
                 n_calls, spent = calls[used]
                 matcher = "device (torch.fft on the card)" if flag == "1" else "numpy"
@@ -1472,6 +1507,255 @@ def train_phase(card, by_path):
     return out
 
 
+def joint_batch(vocab_charset):
+    """The full-width joint batch of ``tools/make_torch_smoke_fixture.py
+    --joint``: the 16 det frames normalized as the det device loop
+    normalizes them, the first 64 rec crops with their labels."""
+    import numpy as np
+
+    from vse_tpu_torch.train import pretrain as P
+    from vse_tpu_torch.video.synth import SMOKE_FIXTURE
+
+    with np.load(os.path.join(SMOKE_FIXTURE, "train_det_en.npz")) as z:
+        det = {k: z[k] for k in z.files}
+    with np.load(os.path.join(SMOKE_FIXTURE, "train_rec_en.npz")) as z:
+        images, texts = z["images"][:64], [str(t) for t in z["texts"][:64]]
+    mean, std = np.array([0.485, 0.456, 0.406]), np.array([0.229, 0.224, 0.225])
+    batch = {"det_images": ((det.pop("images").astype(np.float32) / 255.0 - mean) / std)
+             .astype(np.float32)}
+    batch.update({k: v.astype(np.float32) for k, v in det.items()})
+    batch["labels"], batch["label_lengths"] = P.encode_labels(
+        vocab_charset, texts, P.rec_train_config(vocab_charset).max_label_len)
+    batch["rec_images"] = ((images.astype(np.float32) / 255.0) - 0.5) / 0.5
+    return batch
+
+
+def last_modules_phase(card, by_path):
+    """Phase 13: the meshed engine, the joint step over torch.distributed,
+    the SRT scores, and a traced pass. Returns its numbers."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vse_tpu_torch.core.config import VseConfig
+    from vse_tpu_torch.eval import evaluate_srt
+    from vse_tpu_torch.kernels import ctc_decode as k1
+    from vse_tpu_torch.kernels import keyframe as k2
+    from vse_tpu_torch.parallel import multihost
+    from vse_tpu_torch.parallel.sharding import make_mesh
+    from vse_tpu_torch.pipeline.ocr_engine import OcrEngine
+    from vse_tpu_torch.post.srt import SrtFile
+    from vse_tpu_torch.train import pretrain as P
+    from vse_tpu_torch.train import steps as S
+    from vse_tpu_torch.utils.tracing import annotate, trace_context
+    from vse_tpu_torch.video.synth import SMOKE_FIXTURE, compose_clip, load_fixture, recipe_area
+
+    t_phase = time.perf_counter()
+    failures, out = [], {}
+    with open(os.path.join(SMOKE_FIXTURE, "reference_keyframe.srt"), encoding="utf-8") as f:
+        reference = f.read()
+    with tempfile.TemporaryDirectory() as tmp:
+        bands, recipe = load_fixture()
+        clip = compose_clip(bands, recipe, os.path.join(tmp, "smoke.avi"))
+        area = recipe_area(recipe)
+
+        # (a) the meshed engine: the card count, then two replicas on cuda:0
+        t0 = time.perf_counter()
+        cfg = VseConfig(language="en")
+        engines, samples = {}, None
+        for key, mesh in (("mesh_keyframe", make_mesh()),
+                          ("mesh_keyframe_2x", make_mesh(2, devices=["cuda:0", "cuda:0"]))):
+            engine = OcrEngine(language="en", config=cfg, device="cuda", mesh=mesh)
+            seen = []
+
+            def spy(ex, seen=seen):  # every OCR sample, as the keyframe strategy batches them
+                predict = ex.engine.predict_batch
+
+                def keep(frames, *a, **kw):
+                    seen.append(torch.as_tensor(frames).cpu())
+                    return predict(frames, *a, **kw)
+                ex.engine.predict_batch = keep
+
+            for r in engine.replicas:
+                r.k1_launches = 0
+            launches, ex = drive(f"phase 13, {key} ({mesh.shape['data']} replicas)", clip, area,
+                                 reference, engine, card, spy=spy, runs=("cold",))
+            del engine.predict_batch
+            per = [r.k1_launches for r in engine.replicas]
+            print(f"{key}: K1 launches per replica {per} (of {launches['K1']}), K2 "
+                  f"{launches['K2']}; {ex.n_samples} OCR samples", flush=True)
+            if sum(per) != launches["K1"] or min(per) < 1:
+                failures.append(f"{key}: K1 launches per replica {per}, counted {launches['K1']}")
+            by_path[key] = launches
+            engines[key] = engine
+            batch = torch.cat(seen)
+            if batch.shape[0] != ex.n_samples:
+                failures.append(f"{key}: {batch.shape[0]} frames OCRed for {ex.n_samples} samples")
+            samples = batch if samples is None else samples
+            out[key] = {"replicas": len(per), "k1_per_replica": per}
+        single = OcrEngine(language="en", config=cfg, device="cuda")
+        frames = samples.to("cuda")
+        want = single.ocr_arrays(frames)
+        names = ("boxes", "det_scores", "valid", "ids", "mask", "rec_scores")
+        for key, engine in engines.items():
+            for r in engine.replicas:
+                r.k1_launches = 0
+            got = engine.ocr_arrays(frames)
+            differ = [n for n, a, b in zip(names, got, want) if not np.array_equal(a, b)]
+            per = [r.k1_launches for r in engine.replicas]
+            print(f"{key}: the {frames.shape[0]} samples {list(frames.shape)} as one batch "
+                  f"(K1 per replica {per}): {', '.join(names)} equal to the single-device "
+                  f"engine's: {not differ}", flush=True)
+            if differ:
+                failures.append(f"{key}: {differ} differ from the single-device engine's at "
+                                f"B {frames.shape[0]}")
+        phase("meshed engine", t0)
+
+        # (b) torch.distributed at world size 1 (NCCL), the joint step at full width
+        t0 = time.perf_counter()
+        with open(os.path.join(SMOKE_FIXTURE, "reference_joint.json"), encoding="utf-8") as f:
+            ref = json.load(f)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        multihost.initialize(f"127.0.0.1:{port}", 1, 0)
+        backend = dist.get_backend()
+        with np.load(os.path.join(SMOKE_FIXTURE, "train_joint_init.npz")) as z:
+            flat = {k: z[k] for k in z.files}
+        charset = P._rec_train_charset("en", False, True)
+        # cuDNN's default in a fresh process (phases 4-12 turned it off):
+        # the step must turn TF32 off itself
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        det, rec = S.make_models(ref["vocab"])
+        state, tx = S.load_state(det, rec,
+                                 {k[4:]: v for k, v in flat.items() if k.startswith("det/")},
+                                 {k[4:]: v for k, v in flat.items() if k.startswith("rec/")},
+                                 lr=ref["lr"])
+        mesh = make_mesh()
+        step = S.make_train_step(det, rec, tx, mesh)
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            failures.append("joint step: TF32 left on")
+        state = S.shard_state(mesh, state)
+        local = S.place_batch(mesh, joint_batch(charset))
+        losses = []
+        for _ in range(ref["steps"]):
+            state, metrics = step(state, local)
+            losses.append(float(metrics["loss"]))
+        # 10 warm steps after the 5 of the parity check
+        secs = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, _ = step(state, local)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+        jax_losses = ref["full"]["bf16"]["loss"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, jax_losses)]
+        f32_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["full"]["f32"]["loss"]))
+
+        def one_step():
+            nonlocal state
+            state, _ = step(state, local)
+
+        wall, busy = busy_share(one_step)
+        dist.destroy_process_group()
+        shapes = {k: list(v.shape) for k, v in local.items() if k in ("det_images", "rec_images")}
+        print(f"joint det + rec step on {card}: torch.distributed {backend} at world size 1, "
+              f"mesh {mesh.shape}, batches {shapes}; losses {losses} against the JAX step's "
+              f"{jax_losses} (bf16 modules): largest relative difference {max(rel)!r} (against "
+              f"the JAX step with f32 modules: {f32_rel!r}); {statistics.median(secs) * 1e3:.2f}"
+              f" ms a warm step (host clock, median of 10), one more under the profiler {wall * 1e3:.2f} ms with "
+              f"the device {busy:.1%} busy", flush=True)
+        if max(rel) > 0.01 or not losses[-1] < losses[0]:
+            failures.append(f"joint step: losses {losses} against the JAX step's {jax_losses}")
+        out["joint_step"] = {"backend": backend, "losses": losses, "jax_losses": jax_losses,
+                             "max_rel_diff": max(rel), "max_rel_diff_f32": f32_rel,
+                             "ms": statistics.median(secs) * 1e3, "busy": busy}
+        del det, rec, state, step, local
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("joint step", t0)
+
+        # (d) one warm en keyframe pass under the profiler, with a span. The
+        # profiler can drop a kernel's device record ("Out-of-range" in its
+        # log; 2-3 of K2's 16 in this script's process), so launches are
+        # counted from the host-side launch records, each inside a span the
+        # launching functions open for this pass; the device records give
+        # the kernels' names
+        t0 = time.perf_counter()
+        span = "phase 13: en keyframe pass"
+        launchers = {"K1": (k1, "greedy_decode_cuda", "ctc_decode_fused_kernel"),
+                     "K2": (k2, "frame_stats_cuda", "keyframe_stats_kernel")}
+
+        def spanned(key, fn):
+            def call(*a, **kw):
+                with torch.profiler.record_function(f"vse::{key}"):
+                    return fn(*a, **kw)
+            return call
+
+        real = {key: getattr(mod, name) for key, (mod, name, _) in launchers.items()}
+        for key, (mod, name, _) in launchers.items():
+            setattr(mod, name, spanned(key, real[key]))
+        try:
+            with trace_context(os.path.join(tmp, "trace")) as path:
+                with annotate(span):
+                    launches, _ = drive("phase 13, traced keyframe pass", clip, area, reference,
+                                        engines["mesh_keyframe"], card, runs=("warm",))
+        finally:
+            for key, (mod, name, _) in launchers.items():
+                setattr(mod, name, real[key])
+        by_path["traced_keyframe"] = launches
+        with open(path, encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {e["args"].get("correlation"): e["name"] for e in events
+                   if e.get("cat") == "kernel"}
+        runtime = [e for e in events if e.get("cat") == "cuda_runtime"
+                   and "aunch" in e.get("name", "")]
+        counts, records = {}, {}
+        for key, (_, _, kernel) in launchers.items():
+            inside = [r for s_ in events if s_.get("name") == f"vse::{key}"
+                      and s_.get("ph") == "X" and s_.get("cat") == "user_annotation"
+                      for r in runtime if r.get("tid") == s_.get("tid")
+                      and s_["ts"] <= r["ts"] <= s_["ts"] + s_["dur"]]
+            names = [kernels.get(r["args"].get("correlation")) for r in inside]
+            counts[key] = len(inside)
+            records[key] = sum(1 for n in names if n is not None and kernel in n)
+            if any(n is not None and kernel not in n for n in names) or not records[key]:
+                failures.append(f"trace: {key}'s launches recorded kernels {set(names)}")
+        spans = sum(e.get("name") == span for e in events)
+        print(f"traced keyframe pass: {os.path.getsize(path) / 2**20:.1f} MiB Chrome trace; "
+              f"launches in the trace {counts} against the counters {launches}; their device "
+              f"records {records} (K1 ctc_decode_fused_kernel, K2 keyframe_stats_kernel; the "
+              f"rest dropped by the profiler); span '{span}' {spans} times", flush=True)
+        if counts != launches or spans < 1:
+            failures.append(f"trace: launches {counts}, counters {launches}, spans {spans}")
+        out["trace"] = {"launches": counts, "counters": launches, "device_records": records,
+                        "spans": spans}
+        del engines, single
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("traced pass", t0)
+
+    # (c) every SRT written above, scored against its JAX reference
+    scores = {}
+    for label, got, want in WRITTEN_SRTS:
+        r = evaluate_srt(SrtFile.loads(got), SrtFile.loads(want))
+        scores[label] = {"f1": r.f1, "cer": r.cer, "byte_equal": got == want}
+        print(f"  SRT score, {label}: line F1 {r.f1!r}, CER {r.cer!r} ({r.matched} of {r.n_ref} "
+              f"cues matched, {r.n_pred} written){', byte-equal' if got == want else ''}",
+              flush=True)
+        if got == want and (r.f1 != 1.0 or r.cer != 0.0):
+            failures.append(f"{label}: byte-equal SRT scores F1 {r.f1}, CER {r.cer}")
+    out["srt_scores"] = scores
+    if failures:
+        raise AssertionError("phase 13:\n" + "\n".join(failures))
+    phase("the last modules", t_phase)
+    return out
+
+
 def main() -> int:
     t_all = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1517,6 +1801,7 @@ def main() -> int:
     det_ms = accurate_phase(card, by_path)
     rows["K2_sync_gray"] = sync_phase(card, by_path)
     training = train_phase(card, by_path)
+    last = last_modules_phase(card, by_path)
     rows["K2"]["max_abs_err"] = max(rows["K2"]["max_abs_err"], rows["K2_sync_gray"]["max_abs_err"])
     launches = {k: sum(p[k] for p in by_path.values()) for k in ("K1", "K2")}
     from vse_tpu_torch.video.synth import CJK_FAMILIES, SCRIPT_FAMILIES, load_script_fixture
@@ -1531,11 +1816,13 @@ def main() -> int:
     # and 1280-wide band (phases 4-5 and 9), ch's and chinese_cht's C =
     # 21,060, japan's 21,249, ch's 400-wide band
     en_paths = ("keyframe", "fps", "fps_short", "many_keyframe", "many_fps", "service",
-                "keyframe_accurate", "fps_short_accurate", "keyframe_auto", "train_rec_engine")
+                "keyframe_accurate", "fps_short_accurate", "keyframe_auto", "train_rec_engine",
+                "mesh_keyframe", "mesh_keyframe_2x", "traced_keyframe")
     ch_paths = ("ch_keyframe", "ch_fps_short")
     row_paths = {"K1": en_paths, "K1_c293": ("latin",),
                  "K1_c21060": ch_paths + ("chinese_cht",), "K1_c21249": ("japan",),
-                 "K2": ("keyframe", "many_keyframe", "service", "keyframe_auto"),
+                 "K2": ("keyframe", "many_keyframe", "service", "keyframe_auto",
+                        "mesh_keyframe", "mesh_keyframe_2x", "traced_keyframe"),
                  "K2_ch_area": ch_paths,
                  "K2_sync_gray": ("sync_keyframes_src", "sync_keyframes_dst")}
     areas = {f: load_script_fixture(f)[1]["area"] for f in SCRIPT_FAMILIES + CJK_FAMILIES}
@@ -1574,6 +1861,7 @@ def main() -> int:
         kernels.append(entry)
     print(f"server det device ms per batch: {json.dumps(det_ms)}", flush=True)
     print(f"training: {json.dumps(training)}", flush=True)
+    print(f"phase 13: {json.dumps(last)}", flush=True)
     print(f"[phase] total: {time.perf_counter() - t_all:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

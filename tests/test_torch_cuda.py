@@ -686,3 +686,118 @@ def test_train_augment_apply_on_the_card_equals_cpu(cuda):
         want = aug.apply(draws, x)
         got = aug.apply({k: v.to(cuda) for k, v in draws.items()}, x.to(cuda)).cpu()
         assert (got - want).abs().max() <= 0.02
+
+
+def _band_frames(n):
+    from vse_tpu_torch.video.synth import load_fixture
+
+    bands, _ = load_fixture()
+    frames = [bands[f"band{i}"] for i in range(3)] + [np.zeros_like(bands["band0"])] * n
+    return np.stack(frames[:n])
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_meshed_engine_on_the_card_equals_the_single_engine(cuda, replicas):
+    """``OcrEngine(mesh=...)`` at the card count (one replica) and with two
+    replicas on ``cuda:0``, at B 5 (not a multiple of 2): the same boxes
+    and texts as the single-device engine, the scores within 1e-6 (a piece
+    of 3 frames runs the rec on 24 crops, the single engine on 40: cuDNN's
+    sums for another batch differ in the last bits; at the keyframe clip's
+    45 samples, 23 + 23 against 45, they were equal, chip_smoke phase 13);
+    each replica launches K1 once a chunk."""
+    from vse_tpu_torch.core.config import VseConfig
+    from vse_tpu_torch.parallel.sharding import make_mesh
+    from vse_tpu_torch.pipeline.ocr_engine import OcrEngine
+
+    mesh = make_mesh() if replicas == 1 else make_mesh(2, devices=["cuda:0", "cuda:0"])
+    assert mesh.shape["data"] == (torch.cuda.device_count() if replicas == 1 else 2)
+    cfg = VseConfig(language="en")
+    meshed = OcrEngine("en", config=cfg, device="cuda", mesh=mesh)
+    single = OcrEngine("en", config=cfg, device="cuda")
+    frames = _band_frames(5)
+    k1.launches = 0
+    got = meshed.predict_batch(frames)
+    assert k1.launches == sum(r.k1_launches for r in meshed.replicas) == len(meshed.replicas)
+    want = single.predict_batch(frames)
+    assert [(box, [t for t, _ in res]) for box, res in got] == \
+        [(box, [t for t, _ in res]) for box, res in want]
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_allclose([p for _, p in g], [p for _, p in w], rtol=0, atol=1e-6)
+    assert [t for _, res in got[:3] for t, _ in res] == [
+        "hellofromthenewportonthecard", "asecondlineoftextcomeshere",
+        "andthisisthelastcueoftheclip"]
+
+
+def _joint_steps(device):
+    """5 joint steps at the tiny shapes from the JAX init, on ``device``
+    (a (1, 1) mesh: ``shard_state`` moves the state there)."""
+    import json
+
+    from vse_tpu_torch.parallel.sharding import make_mesh
+    from vse_tpu_torch.train import steps as S
+
+    with open(os.path.join(SMOKE_FIXTURE, "reference_joint.json"), encoding="utf-8") as f:
+        ref = json.load(f)
+    with np.load(os.path.join(SMOKE_FIXTURE, "train_joint_init.npz")) as z:
+        flat = {k: z[k] for k in z.files}
+    with np.load(os.path.join(SMOKE_FIXTURE, "reference_joint_tiny.npz")) as z:
+        batch = {k[6:]: z[k] for k in z.files if k.startswith("batch/")}
+    det, rec = S.make_models(ref["vocab"], device=device)
+    state, tx = S.load_state(det, rec, {k[4:]: v for k, v in flat.items() if k.startswith("det/")},
+                             {k[4:]: v for k, v in flat.items() if k.startswith("rec/")},
+                             lr=ref["lr"])
+    mesh = make_mesh(1, 1, devices=[device])
+    step = S.make_train_step(det, rec, tx, mesh)
+    state = S.shard_state(mesh, state)
+    local = S.place_batch(mesh, batch)
+    losses = []
+    for _ in range(ref["steps"]):
+        state, metrics = step(state, local)
+        losses.append(float(metrics["loss"]))
+    return losses, ref["tiny"]["f32"]["loss"]
+
+
+def test_joint_step_on_the_card_equals_cpu(cuda):
+    """5 joint det + rec steps at the tiny shapes on the card and on the
+    CPU from the JAX init: the losses within rtol 1e-3 of each other and of
+    the JAX f32 step's (``tests/test_torch_train_steps.py``). TF32 is on
+    at the start, as in a fresh process (cuDNN's default): the step turns
+    it off itself."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    card, want = _joint_steps(cuda)
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    cpu, _ = _joint_steps("cpu")
+    np.testing.assert_allclose(card, cpu, rtol=1e-3)
+    np.testing.assert_allclose(card, want, rtol=1e-3)
+
+
+def test_trace_context_on_the_card_names_both_kernels(cuda, tmp_path):
+    """A Chrome trace of 8 K1 and 8 K2 launches under an ``annotate`` span:
+    the span, 16 host launch records in it, and device records naming both
+    kernels. The profiler drops a device record now and then ("Out-of-
+    range" in its log; see ``assert_only_kernels``), so the names are
+    required among the records it kept, the count from the host records."""
+    import json
+
+    from vse_tpu_torch.utils.tracing import annotate, trace_context
+
+    logits = logits_with_ties(8, 80, 69, 0).to(cuda)
+    frames = torch.zeros((32, 104, 1280, 3), dtype=torch.uint8, device=cuda)
+    k2.scan_stats_u8(frames)  # built and warm
+    with trace_context(str(tmp_path)) as path:
+        with annotate("vse_card_span"):
+            for _ in range(8):
+                k1.ctc_greedy_decode(logits)
+                k2.scan_stats_u8(frames)
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    span = [e for e in events if e.get("name") == "vse_card_span" and e.get("ph") == "X"
+            and e.get("cat") == "user_annotation"]
+    assert len(span) == 1
+    launches = [e for e in events if e.get("cat") == "cuda_runtime" and "aunch" in e["name"]
+                and span[0]["ts"] <= e["ts"] <= span[0]["ts"] + span[0]["dur"]]
+    assert len(launches) == 16
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("ctc_decode_fused_kernel" in n for n in names)
+    assert any("keyframe_stats_kernel" in n for n in names)

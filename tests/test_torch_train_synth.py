@@ -97,9 +97,15 @@ def test_the_dataset_renderer_matches_the_jax_loader():
 
 @pytest.mark.parametrize("language", ["th", "hi", "ta", "te", "ch", "japan", "chinese_cht"])
 def test_stroke_families_are_refused_by_name(language):
+    """The stroke families were refused by name until their renderers
+    (``core/strokefont.py`` and its script modules) were ported; now each
+    draws from its stroke script, byte-equal to the JAX renderer
+    (``tests/test_torch_renderers.py``)."""
     cs = get_charset(language)
-    with pytest.raises(NotImplementedError, match="core/strokefont.py"):
-        ts.TextRenderer(cs, ts.rec_render_config())
+    r = ts.TextRenderer(cs, ts.rec_render_config())
+    assert cs.name in ts.STROKE_FAMILIES and r._stroke is not None
+    img, text = r.render_line()
+    assert img.shape == (48, 320, 3) and text
 
 
 def test_wordlists_are_a_copy():

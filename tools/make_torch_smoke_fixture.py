@@ -181,6 +181,37 @@ With ``--train``, the training phase's fixtures (en, seed 0):
 
 Datasets and the init that exist are reused as committed.
 
+With ``--joint``, the joint det + rec step's fixtures
+(``vse_tpu.train.steps``, en, seed 0):
+
+  train_joint_init.npz    ``init_state``'s variables for
+                          ``make_models(vocab)`` with the en training
+                          charset (case folded, no space class): flat flax
+                          keys under ``det/`` and ``rec/``
+  reference_joint.json    ``{"full": ...}``: the losses (and ``det_loss``,
+                          ``rec_loss``) of 5 ``make_train_step`` steps from
+                          that init on one fixed batch at full width (det
+                          16 x 256 x 448 from ``train_det_en.npz``,
+                          normalized as the det device loop normalizes; rec
+                          64 x 48 x 320, the first 64 crops of
+                          ``train_rec_en.npz``), with the bf16 models of
+                          ``make_models`` (the JAX step's) and with the
+                          same modules at ``dtype=float32``; ``{"tiny":
+                          ...}``: the same at ``tests/test_train_and_entry.py``'s
+                          shapes (``combined_batch(4)``, det 32 x 64, rec
+                          48 x 64)
+  reference_joint_tiny.npz  that tiny batch and, from the f32 run, each
+                          trainable parameter's change over the 5 steps
+                          (f16, flat flax keys under ``det/`` and ``rec/``)
+
+With ``--joint-grads``, the f32 step's gradients at the first step on that
+tiny batch from the committed ``train_joint_init.npz`` (the optimizer
+replaced by one that keeps the gradients it is given):
+
+  reference_joint_grads.npz  ``scale/<key>``: each trainable parameter's
+                          largest gradient magnitude (f32); ``grad/<key>``:
+                          its gradient over that scale (f16)
+
 Band files that exist are reused as committed (they are rendered only when
 they are missing; a family whose bands are missing from
 ``bands_scripts.npz`` is drawn and added). Run it with JAX on the CPU (it needs PIL, OpenCV and the
@@ -189,6 +220,8 @@ en and ch rec heads):
     JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py [--language ch|<family>] [--many]
     JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py --accurate
     JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py --train
+    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py --joint
+    JAX_PLATFORMS=cpu python tools/make_torch_smoke_fixture.py --joint-grads
 """
 
 from __future__ import annotations
@@ -956,6 +989,143 @@ def main_train() -> None:
     write_json("reference_train.json", refs)
 
 
+JOINT_STEPS = 5
+JOINT_TINY = dict(det_h=32, det_w=64, rec_h=48, rec_w=64, max_label_len=6, min_font=10,
+                  max_font=14)
+
+
+def flat_variables(tree, prefix: str = "") -> dict:
+    """A flax variable tree as flat numpy arrays keyed ``a/b/c``."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flat_variables(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def joint_full_batch() -> dict:
+    """The full-width joint batch: the 16 det frames normalized as the det
+    device loop normalizes them (no augmentation) and the first 64 rec crops
+    with their labels."""
+    from vse_tpu_torch.train import pretrain as port_pretrain
+
+    charset = port_pretrain._rec_train_charset("en", False, True)
+    with np.load(os.path.join(OUT, "train_det_en.npz")) as z:
+        det = {k: z[k] for k in z.files}
+    with np.load(os.path.join(OUT, "train_rec_en.npz")) as z:
+        images, texts = z["images"][:PARITY_BATCH], [str(t) for t in z["texts"][:PARITY_BATCH]]
+    mean, std = np.array([0.485, 0.456, 0.406]), np.array([0.229, 0.224, 0.225])
+    batch = {"det_images": ((det.pop("images").astype(np.float32) / 255.0 - mean) / std)
+             .astype(np.float32)}
+    batch.update({k: v.astype(np.float32) for k, v in det.items()})
+    labels, lengths = port_pretrain.encode_labels(
+        charset, texts, port_pretrain.rec_train_config(charset).max_label_len)
+    batch["rec_images"] = ((images.astype(np.float32) / 255.0) - 0.5) / 0.5
+    batch["labels"], batch["label_lengths"] = labels, lengths
+    return batch
+
+
+def main_joint() -> None:
+    import jax
+    import jax.numpy as jnp
+
+    from vse_tpu.models.crnn import CRNNRecognizer
+    from vse_tpu.models.db_detector import DBDetector
+    from vse_tpu.train.pretrain import _rec_train_charset
+    from vse_tpu.train.steps import init_state, make_models, make_train_step
+    from vse_tpu.train.synth import SynthConfig, TextRenderer
+
+    charset = _rec_train_charset("en", False, True)
+    models = {
+        "bf16": make_models(charset.vocab_size),
+        "f32": (DBDetector(variant="mobile", train_outputs=True, dtype=jnp.float32),
+                CRNNRecognizer(vocab_size=charset.vocab_size, dtype=jnp.float32)),
+    }
+    init = None
+    refs = {"steps": JOINT_STEPS, "lr": 1e-3, "seed": TRAIN_SEED, "vocab": charset.vocab_size}
+    tiny_batch = TextRenderer(charset, SynthConfig(**JOINT_TINY), seed=TRAIN_SEED).combined_batch(4)
+    tiny_out = {f"batch/{k}": v for k, v in tiny_batch.items()}
+    for size, batch in (("tiny", tiny_batch), ("full", joint_full_batch())):
+        refs[size] = {"shapes": {k: list(v.shape) for k, v in batch.items()}}
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        for dtype, (det, rec) in models.items():
+            state, tx = init_state(det, rec, lr=refs["lr"], seed=TRAIN_SEED)
+            variables = {f"{m}/{k}": v for m, tree in (("det", state.det_params),
+                                                       ("rec", state.rec_params))
+                         for k, v in flat_variables(jax.device_get(tree)).items()}
+            if init is None:
+                init = variables
+                np.savez_compressed(os.path.join(OUT, "train_joint_init.npz"), **init)
+            assert all(np.array_equal(init[k], v) for k, v in variables.items())
+            step = make_train_step(det, rec, tx)
+            run = {"loss": [], "det_loss": [], "rec_loss": []}
+            for i in range(JOINT_STEPS):
+                state, metrics = step(state, jb)
+                for k in run:
+                    run[k].append(float(metrics[k]))
+                print(f"{size} {dtype} step {i}: loss {run['loss'][-1]:.6f}", flush=True)
+            refs[size][dtype] = run
+            if size == "tiny" and dtype == "f32":
+                final = {f"{m}/{k}": v for m, tree in (("det", state.det_params),
+                                                       ("rec", state.rec_params))
+                         for k, v in flat_variables(jax.device_get(tree)).items()}
+                tiny_out.update({f"delta/{k}": (v - init[k]).astype(np.float16)
+                                 for k, v in final.items() if "/params/" in k})
+        write_json("reference_joint.json", refs)
+    np.savez_compressed(os.path.join(OUT, "reference_joint_tiny.npz"), **tiny_out)
+
+
+def unflatten(flat: dict) -> dict:
+    """Flat ``a/b/c`` arrays as a nested variable tree."""
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+def main_joint_grads() -> None:
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from vse_tpu.models.crnn import CRNNRecognizer
+    from vse_tpu.models.db_detector import DBDetector
+    from vse_tpu.train.steps import TrainState, make_train_step
+
+    refs = read_json("reference_joint.json")
+    with np.load(os.path.join(OUT, "train_joint_init.npz")) as z:
+        init = {k: z[k] for k in z.files}
+    with np.load(os.path.join(OUT, "reference_joint_tiny.npz")) as z:
+        batch = {k[6:]: jnp.asarray(z[k]) for k in z.files if k.startswith("batch/")}
+    det = DBDetector(variant="mobile", train_outputs=True, dtype=jnp.float32)
+    rec = CRNNRecognizer(vocab_size=refs["vocab"], dtype=jnp.float32)
+    variables = {m: jax.tree.map(jnp.asarray, unflatten(
+        {k[4:]: v for k, v in init.items() if k.startswith(m + "/")})) for m in ("det", "rec")}
+    # keeps the gradients as its state and updates nothing
+    keep = optax.GradientTransformation(
+        lambda params: jax.tree.map(jnp.zeros_like, params),
+        lambda grads, state, params=None: (jax.tree.map(jnp.zeros_like, grads), grads))
+    params = {m: v["params"] for m, v in variables.items()}
+    state = TrainState(variables["det"], variables["rec"], keep.init(params),
+                       jnp.zeros((), jnp.int32))
+    state, metrics = make_train_step(det, rec, keep)(state, batch)
+    np.testing.assert_allclose(float(metrics["loss"]), refs["tiny"]["f32"]["loss"][0], rtol=1e-6)
+    out = {}
+    for m, tree in jax.device_get(state.opt_state).items():
+        for k, g in flat_variables(tree).items():
+            scale = np.float32(np.abs(g).max())
+            out[f"scale/{m}/params/{k}"] = scale
+            out[f"grad/{m}/params/{k}"] = (g / scale if scale else g).astype(np.float16)
+    np.savez_compressed(os.path.join(OUT, "reference_joint_grads.npz"), **out)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--language", default="en",
@@ -968,8 +1138,18 @@ def main() -> None:
                     help="write the accurate and auto modes' references instead")
     ap.add_argument("--train", action="store_true",
                     help="write the training phase's fixtures instead")
+    ap.add_argument("--joint", action="store_true",
+                    help="write the joint det + rec step's fixtures instead")
+    ap.add_argument("--joint-grads", action="store_true",
+                    help="write the joint step's first gradients instead")
     args = ap.parse_args()
     os.makedirs(OUT, exist_ok=True)
+    if args.joint_grads:
+        main_joint_grads()
+        return
+    if args.joint:
+        main_joint()
+        return
     if args.train:
         main_train()
         return

@@ -5,7 +5,9 @@ against. It runs ``extract`` in modes fast, auto and accurate: the keyframe
 scan (hand-written CUDA kernel K2) or per-frame detection, the PP-OCRv3
 mobile or the ResNet-50 server DB detector, the mobile CRNN, and greedy CTC
 decode (hand-written CUDA kernel K1); the batch surface, the sync re-timer,
-the GUI, and training (``train/``).
+the GUI, training (``train/``, the joint det + rec step included), several
+devices (``parallel/``: engine replicas over a mesh, ``torch.distributed``
+processes), SRT scoring (``eval.py``) and tracing (``utils/``).
 
 The package imports torch and never jax, and imports nothing of vse_tpu.
 Entry points run on ``device="cuda"`` unless the caller passes

@@ -24,10 +24,12 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from vse_tpu_torch.models import bf16 as B16
+from vse_tpu_torch.parallel.collectives import global_sum
 
 
 def make_divisible(v: float, divisor: int = 8, min_value: Optional[int] = None) -> int:
@@ -76,15 +78,45 @@ class BatchNorm(nn.BatchNorm2d):
 
     def __init__(self, ch: int):
         super().__init__(ch, eps=1e-5, momentum=0.1)
+        # a torch.distributed group the batch is split over (the data axis
+        # of train/steps.py): the statistics are then the global batch's
+        self.process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            return self._forward_global(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
             self.running_var.mul_(0.9).add_(var, alpha=0.1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        """Training mode over the batch of every rank of ``process_group``
+        (each holding an equal share): the global mean, then the global
+        biased variance about it, each an all-reduced sum with its gradient
+        (as ``nn.SyncBatchNorm``, but flax's statistics)."""
+        g = self.process_group
+        n = x.numel() // x.shape[1] * dist.get_world_size(g)
+        mean = global_sum(x.sum(dim=(0, 2, 3)), g) / n
+        d = x - mean[None, :, None, None]
+        var = global_sum((d * d).sum(dim=(0, 2, 3)), g) / n
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+            self.running_var.mul_(0.9).add_(var, alpha=0.1)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return d * scale[None, :, None, None] + self.bias[None, :, None, None]
+
+
+def sync_batch_norm(module: nn.Module, group) -> nn.Module:
+    """Set every ``BatchNorm`` of ``module`` to take its training-mode
+    statistics over ``group`` (None: the local batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.process_group = group
+    return module
 
 
 class ConvBNAct(nn.Module):

@@ -35,13 +35,24 @@ the family's mobile head, as the reference's engine falls back.
 ``letterbox_resize``). ``decode="beam"`` runs that det, then the rec on
 f32 crops of the whole frame height and a host prefix beam
 (``ops/ctc.py``) over the log-softmax of its logits; K1 is not launched
-there. Not ported: a device mesh.
+there.
+
+``mesh`` (``parallel/sharding.py::make_mesh``): one det and rec replica on
+each device of the mesh's ``data`` axis, loaded once and copied, each with
+its own CUDA graphs. ``predict_batch`` and ``detect_batch`` pad each chunk
+with zero frames up to a multiple of the data size (the JAX engine's
+``_shard_frames``), OCR one contiguous piece of it on each replica (K1 once
+a piece; its counter counts every replica's launches), gather the results
+in order and drop the padding rows. Nothing is exchanged between the
+devices. The beam path runs on the first replica.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import warnings
+from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple, Union
 
 import numpy as np
@@ -52,6 +63,7 @@ from vse_tpu_torch.core.charset import Charset, get_charset, to_jamo
 from vse_tpu_torch.core.config import Mode, VseConfig
 from vse_tpu_torch.core.registry import ModelSpec, resolve
 from vse_tpu_torch.device import resolve_device
+from vse_tpu_torch.kernels import ctc_decode as k1
 from vse_tpu_torch.kernels.ctc_decode import ctc_greedy_decode
 from vse_tpu_torch.models.bf16 import emulate, fma
 from vse_tpu_torch.models.crnn import CRNNRecognizer
@@ -64,6 +76,7 @@ from vse_tpu_torch.ops.image import (
     crop_boxes_windowed, crop_quads_rectified_windowed, letterbox_matmul, letterbox_resize,
     normalize_det, quads_from_boxes, recip, refine_boxes_ink,
 )
+from vse_tpu_torch.parallel.sharding import data_sharding
 from vse_tpu_torch.post.homoglyph import normalize_script
 from vse_tpu_torch.weights import (
     from_jax_params, load_det_npz, load_det_server, load_rec_flat, load_rec_meta,
@@ -168,9 +181,30 @@ def head_charset(language: str, rec_meta: dict) -> Charset:
     return cs
 
 
+@dataclass
+class Replica:
+    """The det and rec on one device, with their graphed forwards, and the
+    K1 launches its OCR steps made."""
+
+    device: torch.device
+    det_model: torch.nn.Module
+    rec_model: torch.nn.Module
+    det_forward: GraphedForward
+    rec_forward: GraphedForward
+    k1_launches: int = 0
+
+    @classmethod
+    def of(cls, det_model, rec_model, device) -> "Replica":
+        det_model.to(device).eval()
+        rec_model.to(device).eval()
+        return cls(device, det_model, rec_model, GraphedForward(det_model),
+                   GraphedForward(rec_model))
+
+
 class OcrEngine:
-    """Detector + recognizer on one device, in mode fast, auto or accurate,
-    with greedy (kernel K1) or beam decode."""
+    """Detector + recognizer on one device (or one replica on each device
+    of a mesh's data axis), in mode fast, auto or accurate, with greedy
+    (kernel K1) or beam decode."""
 
     def __init__(
         self,
@@ -182,13 +216,20 @@ class OcrEngine:
         decode: str = "greedy",
         beam_width: int = 8,
         rectify: Optional[bool] = None,
+        mesh=None,
     ):
         """``accelerated`` (auto mode's choice of the server models) defaults
         to ``config.hardware_acceleration`` on a CUDA device. ``decode``:
         'greedy' (kernel K1) or 'beam' (host prefix beam of ``beam_width``
         over device log-probs). ``rectify`` (default
-        ``config.rec_rectify``): rectified crops of oriented quads."""
+        ``config.rec_rectify``): rectified crops of oriented quads.
+        ``mesh``: a ``parallel.sharding.Mesh``; its data axis's devices
+        take the place of ``device`` (None: one device)."""
         self.config = config or VseConfig(language=language, mode=mode)
+        if mesh is not None:
+            for d in mesh.data_devices:
+                resolve_device(d)
+            device = mesh.data_devices[0]
         self.device = resolve_device(device)
         self.mode = Mode(mode)
         if decode not in ("greedy", "beam"):
@@ -239,10 +280,13 @@ class OcrEngine:
         # both models run the reference's bf16 numerics (models/bf16.py)
         emulate(self.rec_model)
         emulate(self.det_model)
-        self.det_forward = GraphedForward(self.det_model)
-        self.rec_forward = GraphedForward(self.rec_model)
-        self.rec_model.to(self.device).eval()
-        self.det_model.to(self.device).eval()
+        devices = mesh.data_devices if mesh is not None else [self.device]
+        self._data_sharding = data_sharding(mesh) if mesh is not None else None
+        self.replicas = [Replica.of(self.det_model, self.rec_model, devices[0])]
+        self.replicas += [Replica.of(copy.deepcopy(self.det_model), copy.deepcopy(self.rec_model), d)
+                          for d in devices[1:]]
+        self.det_forward = self.replicas[0].det_forward
+        self.rec_forward = self.replicas[0].rec_forward
         self.rec_h = self.config.rec_image_height
         self.rec_w = self.config.rec_image_width
         self.max_boxes = self.config.max_boxes_per_frame
@@ -259,15 +303,17 @@ class OcrEngine:
         )
 
     @torch.inference_mode()
-    def ocr_step(self, frames: torch.Tensor):
-        """The OCR step on device frames [B, h, w, 3] uint8. Returns device
+    def ocr_step(self, frames: torch.Tensor, replica: Optional[Replica] = None):
+        """The OCR step on device frames [B, h, w, 3] uint8, on ``replica``
+        (default the first; ``frames`` on its device). Returns device
         tensors (boxes [B,K,4] frame coords, det_scores [B,K], valid [B,K],
         ids [B,K,T], mask [B,K,T], rec_scores [B,K])."""
+        rep = replica or self.replicas[0]
         cfg = self.config
         B, h, w, _ = frames.shape
         hd, wd = self.det_bucket(h, w)
         x, (inv_y, inv_x) = letterbox_matmul(frames, hd, wd)
-        prob = self.det_forward(x)
+        prob = rep.det_forward(x)
         boxes, det_scores, valid, angles = db_postprocess(
             prob,
             max_boxes=self.max_boxes,
@@ -296,8 +342,10 @@ class OcrEngine:
             crops = crops_tight(frames, crop_boxes, self.rec_h, self.rec_w, cfg, h)
         K = crops.shape[1]
         crops = rec_normalize(crops.reshape((B * K,) + tuple(crops.shape[2:])))
-        logits = self.rec_forward(crops).contiguous()
+        logits = rep.rec_forward(crops).contiguous()
+        before = k1.launches
         ids, mask, rec_scores = ctc_greedy_decode(logits)
+        rep.k1_launches += k1.launches - before
         T = ids.shape[1]
         return (
             boxes, det_scores, valid,
@@ -322,12 +370,33 @@ class OcrEngine:
         out: List[Tuple[list, list]] = []
         for i in range(0, B, chunk):
             fr = frames_u8[i : i + chunk]
-            res = self.ocr_step(fr)
-            boxes, _, valid, ids, mask, rec_scores = (r.cpu().numpy() for r in res)
+            boxes, _, valid, ids, mask, rec_scores = self.ocr_arrays(fr)
             out.extend(self._format_results(
                 fr.shape[0], boxes, valid, ids, mask, rec_scores, origin
             ))
         return out
+
+    def ocr_arrays(self, frames_u8: torch.Tensor) -> List[np.ndarray]:
+        """The OCR step on one chunk of device frames, spread over the
+        replicas: host arrays (boxes, det_scores, valid, ids, mask,
+        rec_scores), one row a frame."""
+        return self._on_replicas(self.ocr_step, frames_u8)
+
+    def _on_replicas(self, step, frames: torch.Tensor) -> List[np.ndarray]:
+        """``step(piece, replica)`` on each replica's contiguous piece of
+        ``frames`` (padded with zero frames to a multiple of the replica
+        count), every piece issued before any result is read; the results
+        as host arrays in frame order, the padding rows dropped."""
+        if self._data_sharding is None:
+            return [r.cpu().numpy() for r in step(frames, self.replicas[0])]
+        B = frames.shape[0]
+        pad = (-B) % len(self.replicas)
+        if pad:
+            frames = torch.cat([frames, frames.new_zeros((pad,) + tuple(frames.shape[1:]))])
+        results = [step(piece, rep) for piece, rep in
+                   zip(self._data_sharding.shard(frames), self.replicas)]
+        return [np.concatenate([res[k].cpu().numpy() for res in results])[:B]
+                for k in range(len(results[0]))]
 
     @torch.inference_mode()
     def detect_batch(self, frames_u8: Union[np.ndarray, torch.Tensor]):
@@ -337,11 +406,22 @@ class OcrEngine:
         if isinstance(frames_u8, np.ndarray):
             frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
         frames_u8 = frames_u8.to(self.device)
-        cfg = self.config
         _, h, w, _ = frames_u8.shape
         hd, wd = self.det_bucket(h, w)
-        canvas, inv_scale = letterbox_resize(frames_u8, hd, wd)
-        prob = self.det_forward(normalize_det(canvas))
+        inv_scale = 1.0 / min(hd / h, wd / w)  # letterbox_resize's
+        boxes, scores, valid = self._on_replicas(self._detect_step, frames_u8)
+        # on the host in f32, as the reference scales them
+        boxes = boxes * inv_scale
+        boxes[..., 0::2] = boxes[..., 0::2].clip(0, w - 1)
+        boxes[..., 1::2] = boxes[..., 1::2].clip(0, h - 1)
+        return boxes, scores, valid
+
+    def _detect_step(self, frames_u8: torch.Tensor, rep: Replica):
+        """The det alone on ``rep``: canvas boxes, scores and valid."""
+        cfg = self.config
+        hd, wd = self.det_bucket(*frames_u8.shape[1:3])
+        canvas, _ = letterbox_resize(frames_u8, hd, wd)
+        prob = rep.det_forward(normalize_det(canvas))
         boxes, scores, valid, _ = db_postprocess(
             prob,
             max_boxes=self.max_boxes,
@@ -351,11 +431,7 @@ class OcrEngine:
             pool=cfg.db_pool,
             num_sweeps=cfg.db_sweeps,
         )
-        # on the host in f32, as the reference scales them
-        boxes = boxes.cpu().numpy() * inv_scale
-        boxes[..., 0::2] = boxes[..., 0::2].clip(0, w - 1)
-        boxes[..., 1::2] = boxes[..., 1::2].clip(0, h - 1)
-        return boxes, scores.cpu().numpy(), valid.cpu().numpy()
+        return boxes, scores, valid
 
     @torch.inference_mode()
     def crop_logits(self, frames_u8: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:

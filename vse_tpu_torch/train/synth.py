@@ -1,6 +1,6 @@
 """Synthetic training data: rendered text lines (rec) and subtitle frames
 (det) — the port of ``vse_tpu/train/synth.py``, drawing the same pixels
-from the same seed.
+from the same seed, for every family.
 
 The framework trains its own detector and recognizers on synthetic
 burned-subtitle data: text rendered over procedural backgrounds with the
@@ -9,12 +9,11 @@ shrink/threshold maps for det (rect-box approximation of the Vatti offset).
 
 PIL, matplotlib and fontTools are imported where they are used, so the
 module imports without them (the card's machine has none and trains from a
-pre-rendered dataset, ``train/pretrain.py``). The PIL-font families, hangul
-(``core/hangul.py``) and arabic (``core/arabic.py``) render here. The
-stroke-composed scripts (th, devanagari, ta, te) and the CJK families (ch,
-chinese_cht, japan) need the JAX package's ``core/strokefont.py`` and its
-script modules, which are not ported yet: ``TextRenderer`` raises
-``NotImplementedError`` for them.
+pre-rendered dataset, ``train/pretrain.py``). The PIL-font families draw
+with DejaVu, hangul with ``core/hangul.py``, arabic with ``core/arabic.py``,
+and the families no font covers (``STROKE_FAMILIES``: th, devanagari, ta,
+te, and the CJK families ch, chinese_cht, japan) from hand-authored strokes
+(``core/strokefont.py`` and its script modules, ``core/cjk.py``).
 """
 
 from __future__ import annotations
@@ -28,12 +27,9 @@ import numpy as np
 
 from vse_tpu_torch.core.charset import Charset
 
-# the families ``vse_tpu/core/strokefont.py::stroke_script_for`` draws from
-# hand-authored strokes; their renderers are not ported
+# the families ``core/strokefont.py::stroke_script_for`` draws from
+# hand-authored strokes
 STROKE_FAMILIES = ("th", "devanagari", "ta", "te", "ch", "chinese_cht", "japan")
-STROKE_MODULES = ("core/strokefont.py", "core/thai.py", "core/devanagari.py",
-                  "core/tamil.py", "core/telugu.py", "core/cjk.py",
-                  "core/cjk_components.py", "core/cjk_ids.py", "core/kana.py")
 
 
 def _font_paths() -> List[str]:
@@ -93,10 +89,6 @@ def font_covered_chars(font_paths: Sequence[str], chars: Sequence[str]):
 
 class TextRenderer:
     def __init__(self, charset: Charset, cfg: SynthConfig = SynthConfig(), seed: int = 0):
-        if charset.name in STROKE_FAMILIES:
-            raise NotImplementedError(
-                f"charset {charset.name!r} draws from stroke glyphs; its renderer "
-                f"({', '.join(STROKE_MODULES)} of the JAX package) is not ported yet")
         self.charset = charset
         self.cfg = cfg
         self.rng = np.random.default_rng(seed)
@@ -134,6 +126,41 @@ class TextRenderer:
                 c for c in render_chars
                 if c.strip() and (is_syllable(c) or c in covered)
             ]
+        # hand-authored stroke scripts (th/devanagari/ta/te — strokefont.py):
+        # no covering font exists in this image, glyphs draw from polylines
+        self._stroke = None
+        if not self._hangul:
+            from vse_tpu_torch.core.strokefont import stroke_script_for
+
+            self._stroke = stroke_script_for(charset.name)
+        if self._stroke is not None:
+            self.alphabet = [
+                c for c in render_chars
+                if c.strip() and (self._stroke.covers(c) or c in covered)
+            ]
+            self._stroke_bases = [
+                c for c in render_chars if c in self._stroke.glyphs
+            ]
+            self._stroke_marks = [
+                c for c in render_chars if c in self._stroke.marks
+            ]
+            # frequency realism for BASES too: the core letter block
+            # dominates real text; native digits / fractions / archaic
+            # letters stay covered but rare (same rationale as the arabic
+            # core weighting)
+            if self._stroke.core_bases:
+                core = set(self._stroke.core_bases)
+                self._stroke_core = [
+                    c for c in self._stroke_bases if c in core
+                ] or self._stroke_bases
+            else:
+                lo, hi = {
+                    "th": (0x0E01, 0x0E2E), "devanagari": (0x0904, 0x0939),
+                    "ta": (0x0B85, 0x0BB9), "te": (0x0C05, 0x0C39),
+                }.get(charset.name, (0, 0x10FFFF))
+                self._stroke_core = [
+                    c for c in self._stroke_bases if lo <= ord(c) <= hi
+                ] or self._stroke_bases
         if not self.alphabet:
             raise RuntimeError(
                 f"charset {charset.name!r}: the available fonts cover none of "
@@ -264,6 +291,11 @@ class TextRenderer:
             # the korean dict contains ascii too, but the head's job is
             # Hangul — keep English word lines a small minority
             self._pseudo_share = 0.75
+        if self._stroke is not None and charset.name in (
+                "ch", "chinese_cht", "japan"):
+            # CJK dicts contain ascii too, but the heads' job is the
+            # ideograph/kana core (same rationale as the hangul share)
+            self._pseudo_share = 0.75
 
     # common words give the recognizer realistic glyph sequences (the word
     # segmenter's frequency list, ~2k words); random chars keep full charset
@@ -280,6 +312,8 @@ class TextRenderer:
             if self.rng.random() < 0.2:
                 w = w.capitalize()
             return w
+        if self._stroke is not None and getattr(self, "_stroke_bases", None):
+            return self._stroke_word()
         if self._native_pool:
             # el/cyrillic: core-weighted single-script soup (90% modern-
             # letter core, 10% full pool for rare-glyph class coverage)
@@ -337,6 +371,59 @@ class TextRenderer:
         img = img[..., None] + self.rng.normal(0, 1 + 5 * d, size=(h, w, 3))
         return np.clip(img, 0, 255).astype(np.uint8)
 
+    def _stroke_word(self) -> str:
+        """Orthographic pseudo-word for a stroke script: base consonants
+        with slot-appropriate combining vowels/tones in the script's
+        STORAGE order (thai stores pre-vowels before the consonant; indic
+        scripts store pre-matras after — labels must match real-text label
+        order, the renderer reorders at draw time). Marks draw from the
+        script's common set 85% of the time (uniform sampling over the full
+        table stacks rare vedic signs real subtitles never show)."""
+        s = self._stroke
+        if not hasattr(self, "_slot_cache"):
+            by_slot = {"pre": [], "post": [], "above0": [], "above1": [],
+                       "below": []}
+            for c in self._stroke_marks:
+                m = s.marks[c]
+                key = (
+                    "above0" if (m.slot == "above" and m.level == 0)
+                    else "above1" if m.slot == "above" else m.slot
+                )
+                by_slot[key].append(c)
+            self._slot_cache = by_slot
+        sl = self._slot_cache
+        common = set(s.common_marks)
+
+        def pick(pool):
+            cp = [c for c in pool if c in common]
+            if cp and self.rng.random() < 0.85:
+                return str(self.rng.choice(cp))
+            return str(self.rng.choice(pool))
+
+        out = []
+        for _ in range(int(self.rng.integers(2, 6))):
+            pre = None
+            if sl["pre"] and self.rng.random() < 0.18:
+                pre = pick(sl["pre"])
+            if pre is not None and s.pre_stored_before:
+                out.append(pre)
+            if self.rng.random() < 0.85:
+                out.append(str(self.rng.choice(self._stroke_core)))
+            else:
+                out.append(str(self.rng.choice(self._stroke_bases)))
+            if pre is not None and not s.pre_stored_before:
+                out.append(pre)
+            r = self.rng.random()
+            if sl["above0"] and r < 0.25:
+                out.append(pick(sl["above0"]))
+            elif sl["below"] and r < 0.40:
+                out.append(pick(sl["below"]))
+            if sl["above1"] and self.rng.random() < 0.18:
+                out.append(pick(sl["above1"]))
+            if sl["post"] and self.rng.random() < 0.20:
+                out.append(pick(sl["post"]))
+        return "".join(out)
+
     def render_line(self, text: Optional[str] = None) -> Tuple[np.ndarray, str]:
         """One rec training crop [rec_h, rec_w, 3] uint8 + its text.
 
@@ -368,6 +455,8 @@ class TextRenderer:
 
         if self._hangul:
             return self._render_line_hangul(img, draw, text, x, font)
+        if self._stroke is not None:
+            return self._render_line_stroke(img, draw, text, x, font)
         # explicit RTL paragraph direction keeps raqm's bidi in lockstep
         # with the visual-order labels even for digit-leading lines
         draw_kw = (
@@ -434,6 +523,63 @@ class TextRenderer:
             stroke = 2 if self.rng.random() < d else 0
         render_hangul_text(draw, (x, y), text, size, font, fill=fill,
                            stroke_width=stroke, stroke_fill=(0, 0, 0))
+        return np.asarray(img, np.uint8), text
+
+    def _render_line_stroke(self, img, draw, text, x, font):
+        """Stroke-script rec crop (th/devanagari/ta/te): hand-authored
+        glyph composition (core/strokefont.py), PIL-font fallback for
+        font-covered chars (digits/punctuation)."""
+        from vse_tpu_torch.core.strokefont import draw_text, line_width
+
+        s = self._stroke
+        cfg = self.cfg
+        size = min(font.size + 10, cfg.rec_h - 10)
+        y = int(self.rng.integers(0, max(1, cfg.rec_h - size - 4)))
+
+        def width_of(t: str) -> int:
+            w, seg = 0, []
+            for ch in t:
+                if s.covers(ch) or ch == " ":
+                    seg.append(ch)
+                else:
+                    if seg:
+                        w += line_width(s, "".join(seg), size)
+                        seg = []
+                    w += int(draw.textlength(ch, font=font)) + 2
+            if seg:
+                w += line_width(s, "".join(seg), size)
+            return w
+
+        while text and width_of(text) > cfg.rec_w - x - 2:
+            text = text[:-1].rstrip()
+        if not text:
+            text = str(self.rng.choice(self._stroke_bases))
+        d = self.cfg.difficulty
+        fill = (255, 255, 0) if self.rng.random() < 0.3 * d else (255, 255, 255)
+        if self.cfg.fixed_stroke >= 0:
+            stroke = self.cfg.fixed_stroke
+        else:
+            stroke = 2 if self.rng.random() < d else 0
+        cx, seg = x, []
+
+        def flush_seg():
+            nonlocal cx, seg
+            if seg:
+                cx += draw_text(
+                    draw, (cx, y), "".join(seg), size, s, fill=fill,
+                    stroke_width=stroke, stroke_fill=(0, 0, 0),
+                )
+                seg = []
+
+        for ch in text:
+            if s.covers(ch) or ch == " ":
+                seg.append(ch)
+            else:
+                flush_seg()
+                draw.text((cx, y + size // 5), ch, font=font, fill=fill,
+                          stroke_width=stroke, stroke_fill=(0, 0, 0))
+                cx += int(draw.textlength(ch, font=font)) + 2
+        flush_seg()
         return np.asarray(img, np.uint8), text
 
     def rec_batch(self, batch: int) -> Dict[str, np.ndarray]:
