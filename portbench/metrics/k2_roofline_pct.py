@@ -1,0 +1,10 @@
+"""K2 against its memory roofline in the profiled clip: the bytes its
+launches must move (``yardstick.k2_bytes``) over their device time and
+3.35 TB/s, counting only launches whose device records all arrived."""
+
+import roofline
+import yardstick
+
+
+def read(r):
+    return roofline.share(r, "k2", r"keyframe_stats", lambda s: yardstick.k2_bytes(*s[0][:3]))
