@@ -773,25 +773,35 @@ def test_joint_step_on_the_card_equals_cpu(cuda):
 
 
 def test_trace_context_on_the_card_names_both_kernels(cuda, tmp_path):
-    """A Chrome trace of 8 K1 and 8 K2 launches under an ``annotate`` span:
-    the span, 16 host launch records in it, and device records naming both
-    kernels. The profiler drops a device record now and then ("Out-of-
-    range" in its log; see ``assert_only_kernels``), so the names are
-    required among the records it kept, the count from the host records."""
+    """A Chrome trace of 8 K1 and 8 K2 launches under an ``annotate`` span,
+    each K2 launch in a ``scan.k2`` span as the scan makes it: the span, 16
+    host launch records in it, and device records naming both kernels. The
+    profiler drops a device record now and then ("Out-of-range" in its log;
+    see ``assert_only_kernels``), so the names are required among the
+    records it kept, the count from the host records. The recorder's
+    ``scan.k2`` spans are on the profiler's clock: each K2 launch record
+    lies in one of them, and each K2 device record starts after the start
+    of the span whose launch it is (tied through the correlation id)."""
     import json
 
+    from vse_tpu_torch.utils import tracing
     from vse_tpu_torch.utils.tracing import annotate, trace_context
 
     logits = logits_with_ties(8, 80, 69, 0).to(cuda)
     frames = torch.zeros((32, 104, 1280, 3), dtype=torch.uint8, device=cuda)
     k2.scan_stats_u8(frames)  # built and warm
+    tracing.clear()
     with trace_context(str(tmp_path)) as path:
         with annotate("vse_card_span"):
             for _ in range(8):
                 k1.ctc_greedy_decode(logits)
-                k2.scan_stats_u8(frames)
+                with annotate("scan.k2"):
+                    k2.scan_stats_u8(frames)
+    spans = [s for s in tracing.spans() if s.name == "scan.k2"]
+    tracing.clear()
     with open(path, encoding="utf-8") as f:
-        events = json.load(f)["traceEvents"]
+        trace = json.load(f)
+    events = trace["traceEvents"]
     span = [e for e in events if e.get("name") == "vse_card_span" and e.get("ph") == "X"
             and e.get("cat") == "user_annotation"]
     assert len(span) == 1
@@ -801,3 +811,59 @@ def test_trace_context_on_the_card_names_both_kernels(cuda, tmp_path):
     names = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert any("ctc_decode_fused_kernel" in n for n in names)
     assert any("keyframe_stats_kernel" in n for n in names)
+
+    base = trace.get("baseTimeNanoseconds", 0)
+    ns = lambda ts: base + round(ts * 1000)  # noqa: E731
+    assert len(spans) == 8
+    launch_at = {e["args"]["correlation"]: ns(e["ts"]) for e in launches}
+    k2_records = [e for e in events if e.get("cat") == "kernel"
+                  and "keyframe_stats_kernel" in e["name"]]
+    assert k2_records
+    for e in k2_records:
+        t = launch_at[e["args"]["correlation"]]
+        (owner,) = [s for s in spans if s.start_ns <= t <= s.end_ns]
+        assert ns(e["ts"]) >= owner.start_ns
+
+
+def test_recorded_keyframe_run_on_the_card(cuda, tmp_path):
+    """A keyframe run of a 200-frame clip with a fresh engine, recording:
+    its SRT equals the run's with recording off, and the spans that only
+    the card has are there too: ``graph.capture`` on the main thread (each
+    OCR shape's first call), ``feed.ring_wait`` on the feeder's (a batch
+    staged into a pinned buffer whose last copy it waits on: 7 batches
+    through a ring of 4)."""
+    from collections import defaultdict
+
+    from vse_tpu_torch.core.config import VseConfig
+    from vse_tpu_torch.core.subtitle_area import SubtitleArea
+    from vse_tpu_torch.pipeline.extractor import SubtitleExtractor
+    from vse_tpu_torch.utils import tracing
+
+    clip = tiny_clip("band0", n=200)
+    cfg = VseConfig(language="en")
+    area = SubtitleArea(120, 224, 0, 1280)
+    srts = []
+    tracing.record(False)
+    tracing.clear()
+    try:
+        for on in (True, False):
+            tracing.record(on)
+            ex = SubtitleExtractor(clip, area, cfg, device="cuda")  # a fresh engine: captures
+            ex.subtitle_output_path = str(tmp_path / f"run{int(on)}.srt")
+            ex.append_output = lambda *a: None
+            with open(ex.run(), encoding="utf-8") as f:
+                srts.append(f.read())
+            tracing.record(False)
+        spans = tracing.spans()
+    finally:
+        tracing.record(False)
+        tracing.clear()
+    assert srts[0] == srts[1] and srts[0].count("-->") == 1
+    by_thread = defaultdict(set)
+    for s in spans:
+        by_thread[s.thread].add(s.name)
+    main = next(s.thread for s in spans if s.name == "extract")
+    assert {"graph.capture", "ocr.det", "scan.k2", "feed.wait"} <= by_thread[main]
+    feeder = next(s.thread for s in spans if s.name == "feed.stage")
+    assert feeder != main and {"feed.ring_wait", "feed.upload"} <= by_thread[feeder]
+    assert len({s.clip for s in spans}) == 1

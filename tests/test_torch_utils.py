@@ -1,68 +1,14 @@
-"""The port's stage metrics and tracing (``vse_tpu_torch/utils/``): the
-counters against the JAX package's on a patched clock, and
+"""The port's tracing exporter (``vse_tpu_torch/utils/tracing.py``):
 ``trace_context`` / ``annotate`` on the CPU (a Chrome trace naming the
-span, nothing without a directory)."""
+span, nothing without a directory). The recorder's own tests are in
+``test_torch_tracing.py``."""
 
 import json
 import os
-import threading
 
 import torch
 
-import vse_tpu.utils as jax_utils
-import vse_tpu.utils.metrics as jax_metrics
-import vse_tpu_torch.utils as port_utils
-import vse_tpu_torch.utils.metrics as port_metrics
 from vse_tpu_torch.utils.tracing import annotate, trace_context
-
-
-class Clock:
-    def __init__(self):
-        self.t = 100.0
-
-    def __call__(self):
-        self.t += 0.25
-        return self.t
-
-
-def drive(module, monkeypatch):
-    monkeypatch.setattr(module.time, "perf_counter", Clock())
-    timer = module.StageTimer()
-    with timer.stage("det", n=8):
-        pass
-    with timer.stage("rec", n=64):
-        pass
-    with timer.stage("det", n=8):
-        pass
-    timer.get("idle")
-    return timer
-
-
-def test_stage_timer_reports_as_jax(monkeypatch):
-    ours = drive(port_metrics, monkeypatch)
-    theirs = drive(jax_metrics, monkeypatch)
-    assert ours.report() == theirs.report()
-    assert ours.as_dict() == theirs.as_dict() == {"det": 32.0, "rec": 256.0, "idle": 0.0}
-    t = port_metrics.Throughput("x")
-    t.add(3, 1.5)
-    assert str(t) == str(jax_metrics.Throughput("x", 3, 1.5)) == "x: 3 items, 2.0/s"
-    assert port_utils.__all__ == jax_utils.__all__
-
-
-def test_stage_timer_is_thread_safe():
-    timer = port_metrics.StageTimer()
-
-    def work():
-        for _ in range(200):
-            with timer.stage("s", n=1):
-                pass
-
-    threads = [threading.Thread(target=work) for _ in range(8)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    assert timer.get("s").items == 1600
 
 
 def test_trace_context_writes_a_chrome_trace_with_the_span(tmp_path, monkeypatch):

@@ -6,7 +6,9 @@ steps, about 6,000 launches an OCR chunk. Eager, the host's launch cost
 holds the card idle; a graph replays the same kernels in one launch. The
 kernels and their order are those of the eager forward, so the results are
 the same bit for bit (``tests/test_torch_cuda.py``). The CTC decode (K1)
-stays outside the graph, so that its wrapper counts each launch.
+stays outside the graph, so that its wrapper counts each launch. A
+capture records the span ``graph.capture`` (attr ``input``, its shape;
+``utils/tracing.py``, a no-op unless recording).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
+
+from vse_tpu_torch.utils.tracing import annotate
 
 
 class GraphedForward:
@@ -39,14 +43,15 @@ class GraphedForward:
         return static_out.clone()
 
     def _capture(self, x: torch.Tensor):
-        static_in = x.clone()
-        side = torch.cuda.Stream(device=x.device)
-        side.wait_stream(torch.cuda.current_stream(x.device))
-        with torch.cuda.stream(side):  # warm-up: cuDNN / cuBLAS set up here
-            self.module(static_in)
-        torch.cuda.current_stream(x.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: the feed's thread keeps uploading during a capture
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            static_out = self.module(static_in)
-        return graph, static_in, static_out
+        with annotate("graph.capture", input=x):
+            static_in = x.clone()
+            side = torch.cuda.Stream(device=x.device)
+            side.wait_stream(torch.cuda.current_stream(x.device))
+            with torch.cuda.stream(side):  # warm-up: cuDNN / cuBLAS set up here
+                self.module(static_in)
+            torch.cuda.current_stream(x.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the feed's thread keeps uploading during a capture
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                static_out = self.module(static_in)
+            return graph, static_in, static_out

@@ -31,6 +31,13 @@ beside the SRT (``dump_raw_records``), and ``debug_ocr_loss`` writes a
 frame whose CJK-family read lost every CJK character to ``loss/`` beside
 the video (``_maybe_dump_ocr_loss``; it needs OpenCV, imported only then).
 ``scanner_decoder`` picks the frame streams' decoder (OpenCV or ffmpeg).
+
+Spans (``utils/tracing.py``, no-ops unless recording): ``run`` opens a clip
+scope and its root span ``extract`` (attr ``video``), with ``pass.scan``,
+``pass.ocr`` and ``pass.post`` beside ``pass_seconds``; the scan records
+``scan.k2`` (K2's call, attr ``batch``), ``scan.fetch`` (the stats' copy
+to the host) and ``scan.find_spans``; the tracker ``tracker.feed`` and
+``tracker.finish``.
 """
 
 from __future__ import annotations
@@ -62,6 +69,8 @@ from vse_tpu_torch.post.filters import always_yes, filter_scene_text, filter_wat
 from vse_tpu_torch.post.records import RawRecord, write_raw
 from vse_tpu_torch.post.reformat import execute as reformat_execute
 from vse_tpu_torch.post.srt import SrtFile, SrtItem, srt_to_txt
+from vse_tpu_torch.utils import tracing
+from vse_tpu_torch.utils.tracing import annotate
 from vse_tpu_torch.video.decode import FrameStream, Video, probe, read_frames, video_path
 
 CJK_RE = re.compile(r"[一-龥]")
@@ -166,24 +175,26 @@ class DetSpanTracker:
             self.buf = []
 
     def feed(self, frame_no: int, dt_box: list, rec_res: list) -> None:
-        ex = self.ex
-        if not any(ex.in_area(quad) for quad in dt_box):
-            if self.buf and frame_no - self.buf[-1][0] >= self.grace:
-                self._flush()
-            return
-        area_text = ex._area_text(dt_box, rec_res)
-        kept = ex._gate_lines(dt_box, rec_res)
-        conf = float(np.mean([p for _, _, p in kept])) if kept else 0.0
-        self.buf.append((frame_no, area_text, conf, dt_box, rec_res))
-        if len(self.buf) >= self._FLUSH_AFTER:
-            groups = split_text_groups(self.buf, self.thr)
-            if len(groups) > 1:
-                # only the last group can still grow or merge back
-                self._emit(groups[:-1])
-                self.buf = list(groups[-1])
+        with annotate("tracker.feed"):
+            ex = self.ex
+            if not any(ex.in_area(quad) for quad in dt_box):
+                if self.buf and frame_no - self.buf[-1][0] >= self.grace:
+                    self._flush()
+                return
+            area_text = ex._area_text(dt_box, rec_res)
+            kept = ex._gate_lines(dt_box, rec_res)
+            conf = float(np.mean([p for _, _, p in kept])) if kept else 0.0
+            self.buf.append((frame_no, area_text, conf, dt_box, rec_res))
+            if len(self.buf) >= self._FLUSH_AFTER:
+                groups = split_text_groups(self.buf, self.thr)
+                if len(groups) > 1:
+                    # only the last group can still grow or merge back
+                    self._emit(groups[:-1])
+                    self.buf = list(groups[-1])
 
     def finish(self) -> None:
-        self._flush()
+        with annotate("tracker.finish"):
+            self._flush()
 
 
 class SubtitleExtractor:
@@ -410,15 +421,18 @@ class SubtitleExtractor:
         for batch, band in device_prefetch(stream, self.device, transform=crop):
             self._check_cancel()
             n_valid = int(batch.valid.sum())
-            all_stats.append(scan_stats_u8(band, params)[:n_valid])
+            with annotate("scan.k2", batch=len(all_stats)):
+                all_stats.append(scan_stats_u8(band, params)[:n_valid])
             all_nos.append(batch.frame_nos[:n_valid])
             done = float(batch.frame_nos[n_valid - 1]) / max(1, self.frame_count)
             self.update_progress(frame_extract=done * 100)
         self._frame_to_ms.update(stream.frame_to_ms)
         if not all_stats:
             return []
-        stats = torch.cat(all_stats).cpu().numpy()
-        spans = find_spans(stats, np.concatenate(all_nos), params)
+        with annotate("scan.fetch"):
+            stats = torch.cat(all_stats).cpu().numpy()
+        with annotate("scan.find_spans"):
+            spans = find_spans(stats, np.concatenate(all_nos), params)
         self.timeline = SrtFile()
         for i, sp in enumerate(spans):
             self.timeline.append(SrtItem(
@@ -490,23 +504,25 @@ class SubtitleExtractor:
         """Pass 1 scans; pass 2 OCRs the within-span samples (decoded in one
         pass) on the uploaded band and refines the spans by text change."""
         t0 = time.perf_counter()
-        spans = self.scan_keyframe_spans()
+        with annotate("pass.scan"):
+            spans = self.scan_keyframe_spans()
         t1 = time.perf_counter()
-        wanted, metas = self.keyframe_sample_targets(spans)
-        decoded = read_frames(self.video, wanted)
-        pairs = [(m, f) for m, f in zip(metas, decoded) if f is not None]
-        B = self.config.frame_batch
-        y0, y1 = self.upload_band() or (0, self.frame_height)
-        # the sampled frames are kept only for the loss debugger
-        keep_frames = self.config.debug_ocr_loss
-        samples = []
-        for i in range(0, len(pairs), B):
-            self._check_cancel()
-            chunk = np.stack([f for _, f in pairs[i : i + B]])
-            results = self.engine.predict_batch(chunk[:, y0:y1], origin=(y0, 0))
-            for (m, f), (dt_box, rec_res) in zip(pairs[i : i + B], results):
-                samples.append((m[0], m[1], dt_box, rec_res, f if keep_frames else None))
-            self.update_progress(ocr=min(100.0, (i + B) / max(1, len(pairs)) * 100))
+        with annotate("pass.ocr"):
+            wanted, metas = self.keyframe_sample_targets(spans)
+            decoded = read_frames(self.video, wanted)
+            pairs = [(m, f) for m, f in zip(metas, decoded) if f is not None]
+            B = self.config.frame_batch
+            y0, y1 = self.upload_band() or (0, self.frame_height)
+            # the sampled frames are kept only for the loss debugger
+            keep_frames = self.config.debug_ocr_loss
+            samples = []
+            for i in range(0, len(pairs), B):
+                self._check_cancel()
+                chunk = np.stack([f for _, f in pairs[i : i + B]])
+                results = self.engine.predict_batch(chunk[:, y0:y1], origin=(y0, 0))
+                for (m, f), (dt_box, rec_res) in zip(pairs[i : i + B], results):
+                    samples.append((m[0], m[1], dt_box, rec_res, f if keep_frames else None))
+                self.update_progress(ocr=min(100.0, (i + B) / max(1, len(pairs)) * 100))
         t2 = time.perf_counter()
         self.refine_keyframe_spans(spans, samples)
         self.pass_seconds.update(scan=t1 - t0, ocr=t2 - t1)
@@ -618,34 +634,38 @@ class SubtitleExtractor:
     def run(self) -> str:
         """Full pipeline (reference backend/main.py:103-191). Returns the SRT
         path."""
-        t0 = time.perf_counter()
-        self.update_progress(0, 0)
-        self.raw_records = []
-        self.pass_seconds = {}
-        self.n_spans = self.n_samples = 0
-        if self.sub_area is not None and self.config.mode == Mode.ACCURATE:
-            self.extract_frame_by_det()
-        elif self.sub_area is not None:
-            self.extract_frame_by_keyframe()
-        else:
-            self.extract_frame_by_fps()
-        t1 = time.perf_counter()
-        if self.sub_area is None:
-            self.apply_filters()
-        if self.config.debug_no_delete_cache:
-            self.dump_raw_records()
-        self.generate_subtitle_file()
-        if self.config.word_segmentation:
-            reformat_execute(self.subtitle_output_path, self.config.language)
-        self.update_progress(100, 100)
-        if self.config.generate_txt:
-            srt_to_txt(self.subtitle_output_path)
-        self.pass_seconds["post"] = time.perf_counter() - t1
-        self.pass_seconds["total"] = time.perf_counter() - t0
-        self.append_output(tr("ExtractionDone", f"{self.pass_seconds['total']:.1f}",
-                              self.subtitle_output_path))
-        self.append_output(tr("SubLocation", self.subtitle_output_path))
-        return self.subtitle_output_path
+        with tracing.clip(), annotate("extract", video=self.video_path):
+            t0 = time.perf_counter()
+            self.update_progress(0, 0)
+            self.raw_records = []
+            self.pass_seconds = {}
+            self.n_spans = self.n_samples = 0
+            if self.sub_area is not None and self.config.mode == Mode.ACCURATE:
+                with annotate("pass.ocr"):
+                    self.extract_frame_by_det()
+            elif self.sub_area is not None:
+                self.extract_frame_by_keyframe()
+            else:
+                with annotate("pass.ocr"):
+                    self.extract_frame_by_fps()
+            t1 = time.perf_counter()
+            with annotate("pass.post"):
+                if self.sub_area is None:
+                    self.apply_filters()
+                if self.config.debug_no_delete_cache:
+                    self.dump_raw_records()
+                self.generate_subtitle_file()
+                if self.config.word_segmentation:
+                    reformat_execute(self.subtitle_output_path, self.config.language)
+                self.update_progress(100, 100)
+                if self.config.generate_txt:
+                    srt_to_txt(self.subtitle_output_path)
+            self.pass_seconds["post"] = time.perf_counter() - t1
+            self.pass_seconds["total"] = time.perf_counter() - t0
+            self.append_output(tr("ExtractionDone", f"{self.pass_seconds['total']:.1f}",
+                                  self.subtitle_output_path))
+            self.append_output(tr("SubLocation", self.subtitle_output_path))
+            return self.subtitle_output_path
 
     def generate_subtitle_file(self) -> None:
         """Dedup the raw records, then merge them into the keyframe timeline

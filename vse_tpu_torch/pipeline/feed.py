@@ -18,10 +18,19 @@ rather than as an error:
 - a device batch is a fresh allocation on the side stream, marked with
   ``record_stream`` for the consumer's stream, so the caching allocator
   hands its memory out again only after the consumer's work on it is done.
+
+Spans (``utils/tracing.py``, no-ops unless recording), each with the
+batch's sequence number ``batch``: on the feeder thread ``feed.crop`` (the
+transform), ``feed.ring_wait`` (a pinned buffer's last copy, on the card),
+``feed.stage`` (the copy into pinned memory; on the CPU into a contiguous
+array), ``feed.upload`` (the async copy's enqueue; on the CPU the hand-over
+as a tensor) and ``feed.put_wait`` (the consumer behind); on the
+consumer's thread ``feed.wait`` (blocked on the next batch).
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Iterable, Iterator, List, Optional, Tuple, Union
@@ -29,6 +38,7 @@ from typing import Iterable, Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from vse_tpu_torch.utils.tracing import annotate, carry
 from vse_tpu_torch.video.decode import FrameBatch
 
 
@@ -41,28 +51,33 @@ class _PinnedRing:
         self.events: List[Optional[torch.cuda.Event]] = [None] * n
         self.next = 0
 
-    def stage(self, frames: np.ndarray) -> Tuple[torch.Tensor, int]:
-        """Copy ``frames`` into the next buffer (once its last copy is done);
-        returns the buffer and its slot."""
+    def stage(self, frames: np.ndarray, seq: int) -> Tuple[torch.Tensor, int]:
+        """Copy ``frames`` (batch ``seq``) into the next buffer (once its
+        last copy is done); returns the buffer and its slot."""
         k = self.next
         self.next = (k + 1) % len(self.bufs)
         if self.events[k] is not None:
-            self.events[k].synchronize()
-        buf = self.bufs[k]
-        if buf is None or tuple(buf.shape) != frames.shape:
-            buf = self.bufs[k] = torch.empty(frames.shape, dtype=torch.uint8,
-                                             pin_memory=True)
-        buf.copy_(torch.from_numpy(frames))
+            with annotate("feed.ring_wait", batch=seq):
+                self.events[k].synchronize()
+        with annotate("feed.stage", batch=seq):
+            buf = self.bufs[k]
+            if buf is None or tuple(buf.shape) != frames.shape:
+                buf = self.bufs[k] = torch.empty(frames.shape, dtype=torch.uint8,
+                                                 pin_memory=True)
+            buf.copy_(torch.from_numpy(frames))
         return buf, k
 
 
 def _upload(frames: np.ndarray, device: torch.device, ring: Optional[_PinnedRing],
-            side: Optional["torch.cuda.Stream"]):
-    """One batch onto ``device``: (tensor, event the consumer waits on)."""
+            side: Optional["torch.cuda.Stream"], seq: int):
+    """Batch ``seq`` onto ``device``: (tensor, event the consumer waits on)."""
     if ring is None:
-        return torch.from_numpy(np.ascontiguousarray(frames)), None
-    pinned, k = ring.stage(frames)
-    with torch.cuda.stream(side):
+        with annotate("feed.stage", batch=seq):
+            frames = np.ascontiguousarray(frames)
+        with annotate("feed.upload", batch=seq):
+            return torch.from_numpy(frames), None
+    pinned, k = ring.stage(frames, seq)
+    with annotate("feed.upload", batch=seq), torch.cuda.stream(side):
         dev = torch.empty(pinned.shape, dtype=torch.uint8, device=device)
         dev.copy_(pinned, non_blocking=True)
         done = torch.cuda.Event()
@@ -115,12 +130,15 @@ def device_prefetch(
         try:
             if on_card:
                 torch.cuda.set_device(device)
-            for b in it:
+            for seq, b in enumerate(it):
                 if stop.is_set():
                     break
-                frames = b.frames if transform is None else transform(b.frames)
-                if not _put((b, *_upload(frames, device, ring, side))):
-                    break
+                with annotate("feed.crop", batch=seq):
+                    frames = b.frames if transform is None else transform(b.frames)
+                item = (b, *_upload(frames, device, ring, side, seq))
+                with annotate("feed.put_wait", batch=seq):
+                    if not _put(item):
+                        break
         except Exception as e:  # surface decode/upload errors to the consumer
             err.append(e)
         finally:
@@ -129,11 +147,12 @@ def device_prefetch(
                 close()  # release the decode generator's reader
             _put(None)
 
-    t = threading.Thread(target=feeder, daemon=True)
+    t = threading.Thread(target=carry(feeder), daemon=True)
     t.start()
     try:
-        while True:
-            item = q.get()
+        for seq in itertools.count():
+            with annotate("feed.wait", batch=seq):
+                item = q.get()
             if item is None:
                 break
             b, dev, done = item

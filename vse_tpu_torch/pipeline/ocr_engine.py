@@ -45,6 +45,17 @@ with zero frames up to a multiple of the data size (the JAX engine's
 a piece; its counter counts every replica's launches), gather the results
 in order and drop the padding rows. Nothing is exchanged between the
 devices. The beam path runs on the first replica.
+
+Spans and counters (``utils/tracing.py``, no-ops unless recording):
+``ocr_arrays`` records ``ocr.step`` (attr ``frames``, their shape) around
+the step's parts ``ocr.letterbox``, ``ocr.det`` and ``ocr.rec`` (each
+forward, attr ``input``, its shape), ``ocr.postprocess`` (the DB
+postprocess and the boxes to frame coords), ``ocr.crops``, ``ocr.k1`` and
+``ocr.fetch`` (the results' copy to the host), then the counters
+``ocr.crops`` (the rec's crops, every box slot of every frame) and
+``ocr.boxes`` (the slots that hold a box); ``predict_batch`` records
+``ocr.format`` (the host's texts and line sorting). On the card the spans
+time the host's enqueue, and ``ocr.fetch`` the wait for the device.
 """
 
 from __future__ import annotations
@@ -78,6 +89,7 @@ from vse_tpu_torch.ops.image import (
 )
 from vse_tpu_torch.parallel.sharding import data_sharding
 from vse_tpu_torch.post.homoglyph import normalize_script
+from vse_tpu_torch.utils.tracing import annotate, count, recording
 from vse_tpu_torch.weights import (
     from_jax_params, load_det_npz, load_det_server, load_rec_flat, load_rec_meta,
     rec_head_paths,
@@ -312,40 +324,46 @@ class OcrEngine:
         cfg = self.config
         B, h, w, _ = frames.shape
         hd, wd = self.det_bucket(h, w)
-        x, (inv_y, inv_x) = letterbox_matmul(frames, hd, wd)
-        prob = rep.det_forward(x)
-        boxes, det_scores, valid, angles = db_postprocess(
-            prob,
-            max_boxes=self.max_boxes,
-            thresh=cfg.db_thresh,
-            box_thresh=cfg.db_box_thresh,
-            unclip_ratio=cfg.db_unclip_ratio,
-            pool=cfg.db_pool,
-            num_sweeps=cfg.db_sweeps,
-        )
-        boxes = torch.stack(
-            [
-                torch.clamp(boxes[..., 0] * inv_x, 0, w - 1),
-                torch.clamp(boxes[..., 1] * inv_y, 0, h - 1),
-                torch.clamp(boxes[..., 2] * inv_x, 0, w - 1),
-                torch.clamp(boxes[..., 3] * inv_y, 0, h - 1),
-            ],
-            dim=-1,
-        )
-        if self.rectify:
-            # quads from the unexpanded boxes: the oriented fit frames the
-            # glyphs without the axis-aligned path's y-expansion
-            crops = crop_quads_rectified_windowed(
-                frames.float(), quads_from_boxes(boxes, angles), self.rec_h, self.rec_w)
-        else:
-            crop_boxes = expand_boxes_y(boxes, cfg.rec_crop_expand_y, h)
-            crops = crops_tight(frames, crop_boxes, self.rec_h, self.rec_w, cfg, h)
-        K = crops.shape[1]
-        crops = rec_normalize(crops.reshape((B * K,) + tuple(crops.shape[2:])))
-        logits = rep.rec_forward(crops).contiguous()
-        before = k1.launches
-        ids, mask, rec_scores = ctc_greedy_decode(logits)
-        rep.k1_launches += k1.launches - before
+        with annotate("ocr.letterbox"):
+            x, (inv_y, inv_x) = letterbox_matmul(frames, hd, wd)
+        with annotate("ocr.det", input=x):
+            prob = rep.det_forward(x)
+        with annotate("ocr.postprocess"):
+            boxes, det_scores, valid, angles = db_postprocess(
+                prob,
+                max_boxes=self.max_boxes,
+                thresh=cfg.db_thresh,
+                box_thresh=cfg.db_box_thresh,
+                unclip_ratio=cfg.db_unclip_ratio,
+                pool=cfg.db_pool,
+                num_sweeps=cfg.db_sweeps,
+            )
+            boxes = torch.stack(
+                [
+                    torch.clamp(boxes[..., 0] * inv_x, 0, w - 1),
+                    torch.clamp(boxes[..., 1] * inv_y, 0, h - 1),
+                    torch.clamp(boxes[..., 2] * inv_x, 0, w - 1),
+                    torch.clamp(boxes[..., 3] * inv_y, 0, h - 1),
+                ],
+                dim=-1,
+            )
+        with annotate("ocr.crops"):
+            if self.rectify:
+                # quads from the unexpanded boxes: the oriented fit frames the
+                # glyphs without the axis-aligned path's y-expansion
+                crops = crop_quads_rectified_windowed(
+                    frames.float(), quads_from_boxes(boxes, angles), self.rec_h, self.rec_w)
+            else:
+                crop_boxes = expand_boxes_y(boxes, cfg.rec_crop_expand_y, h)
+                crops = crops_tight(frames, crop_boxes, self.rec_h, self.rec_w, cfg, h)
+            K = crops.shape[1]
+            crops = rec_normalize(crops.reshape((B * K,) + tuple(crops.shape[2:])))
+        with annotate("ocr.rec", input=crops):
+            logits = rep.rec_forward(crops).contiguous()
+        with annotate("ocr.k1"):
+            before = k1.launches
+            ids, mask, rec_scores = ctc_greedy_decode(logits)
+            rep.k1_launches += k1.launches - before
         T = ids.shape[1]
         return (
             boxes, det_scores, valid,
@@ -371,16 +389,22 @@ class OcrEngine:
         for i in range(0, B, chunk):
             fr = frames_u8[i : i + chunk]
             boxes, _, valid, ids, mask, rec_scores = self.ocr_arrays(fr)
-            out.extend(self._format_results(
-                fr.shape[0], boxes, valid, ids, mask, rec_scores, origin
-            ))
+            with annotate("ocr.format"):
+                out.extend(self._format_results(
+                    fr.shape[0], boxes, valid, ids, mask, rec_scores, origin
+                ))
         return out
 
     def ocr_arrays(self, frames_u8: torch.Tensor) -> List[np.ndarray]:
         """The OCR step on one chunk of device frames, spread over the
         replicas: host arrays (boxes, det_scores, valid, ids, mask,
         rec_scores), one row a frame."""
-        return self._on_replicas(self.ocr_step, frames_u8)
+        with annotate("ocr.step", frames=frames_u8):
+            out = self._on_replicas(self.ocr_step, frames_u8)
+        if recording():
+            count("ocr.crops", out[2].size)
+            count("ocr.boxes", out[2].sum())
+        return out
 
     def _on_replicas(self, step, frames: torch.Tensor) -> List[np.ndarray]:
         """``step(piece, replica)`` on each replica's contiguous piece of
@@ -388,15 +412,18 @@ class OcrEngine:
         count), every piece issued before any result is read; the results
         as host arrays in frame order, the padding rows dropped."""
         if self._data_sharding is None:
-            return [r.cpu().numpy() for r in step(frames, self.replicas[0])]
+            out = step(frames, self.replicas[0])
+            with annotate("ocr.fetch"):
+                return [r.cpu().numpy() for r in out]
         B = frames.shape[0]
         pad = (-B) % len(self.replicas)
         if pad:
             frames = torch.cat([frames, frames.new_zeros((pad,) + tuple(frames.shape[1:]))])
         results = [step(piece, rep) for piece, rep in
                    zip(self._data_sharding.shard(frames), self.replicas)]
-        return [np.concatenate([res[k].cpu().numpy() for res in results])[:B]
-                for k in range(len(results[0]))]
+        with annotate("ocr.fetch"):
+            return [np.concatenate([res[k].cpu().numpy() for res in results])[:B]
+                    for k in range(len(results[0]))]
 
     @torch.inference_mode()
     def detect_batch(self, frames_u8: Union[np.ndarray, torch.Tensor]):

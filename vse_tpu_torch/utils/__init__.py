@@ -1,4 +1,3 @@
-from vse_tpu_torch.utils.metrics import StageTimer, Throughput
-from vse_tpu_torch.utils.tracing import trace_context
+from vse_tpu_torch.utils.tracing import annotate, count, record, trace_context
 
-__all__ = ["StageTimer", "Throughput", "trace_context"]
+__all__ = ["annotate", "count", "record", "trace_context"]

@@ -11,6 +11,13 @@ constant-frame-rate file. The frame queue is plain Python (a reader thread
 and a bounded ``queue.Queue``); the JAX package's native ring buffer is not
 used.
 
+The reader thread records ``decode.read`` (a frame's decode),
+``decode.copy`` (its contiguous RGB copy) and ``decode.put_wait`` (the
+queue full); the batch assembly records ``stream.wait`` (waiting on the
+reader) and ``stream.assemble`` (the batch's zero-fill and copies, attr
+``batch``); ``read_frames`` records ``decode.samples`` (attr ``count``).
+They are ``utils/tracing.py`` spans, no-ops unless recording.
+
 ``FrameStream(..., decoder="ffmpeg")`` (``Decoder.FFMPEG``, the config's
 ``scanner_decoder``) decodes a file through an ffmpeg rawvideo pipe: the
 binary named by ``$VSE_FFMPEG``, else ``ffmpeg`` on ``PATH``. Without one it
@@ -30,6 +37,8 @@ from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+from vse_tpu_torch.utils.tracing import annotate, carry
 
 QUEUE_DEPTH = 64  # decoded frames buffered ahead of the consumer
 SEEK_GAP = 300  # read_frames seeks over gaps longer than this many frames
@@ -222,7 +231,9 @@ class FrameStream:
         from frame ``start_frame + 1`` on."""
         if isinstance(self.video, InMemoryVideo):
             for i in range(self.start_frame, len(self.video.frames)):
-                yield self.video.frames[i], i + 1, i * 1000.0 / self.video.fps
+                with annotate("decode.read"):
+                    frame = self.video.frames[i]
+                yield frame, i + 1, i * 1000.0 / self.video.fps
             return
         cv2 = _cv2()
         if self.decoder == "ffmpeg":
@@ -235,7 +246,8 @@ class FrameStream:
                 cap.set(cv2.CAP_PROP_POS_FRAMES, self.start_frame)
                 frame_no = self.start_frame
             while True:
-                ret, frame = cap.read()
+                with annotate("decode.read"):
+                    ret, frame = cap.read()
                 if not ret:
                     break
                 frame_no += 1
@@ -251,7 +263,10 @@ class FrameStream:
                     break
                 self.frame_to_ms[no] = ts
                 if (no - self.start_frame - 1) % self.stride == 0:
-                    q.put((np.ascontiguousarray(frame), no))
+                    with annotate("decode.copy"):
+                        frame = np.ascontiguousarray(frame)
+                    with annotate("decode.put_wait"):
+                        q.put((frame, no))
         finally:
             frames.close()  # release the capture now, not at collection
             q.put(None)
@@ -260,25 +275,29 @@ class FrameStream:
         shape = (self.meta.height, self.meta.width, 3)
         q: "queue.Queue" = queue.Queue(maxsize=QUEUE_DEPTH)
         stop = threading.Event()
-        t = threading.Thread(target=self._decode_loop, args=(q, stop), daemon=True)
+        t = threading.Thread(target=carry(self._decode_loop), args=(q, stop), daemon=True)
         t.start()
         try:
             done = False
+            seq = 0
             while not done:
                 take: List[Tuple[np.ndarray, int]] = []
-                while len(take) < self.batch_size:
-                    item = q.get()
-                    if item is None:
-                        done = True
-                        break
-                    take.append(item)
+                with annotate("stream.wait", batch=seq):
+                    while len(take) < self.batch_size:
+                        item = q.get()
+                        if item is None:
+                            done = True
+                            break
+                        take.append(item)
                 if not take:
                     break
-                frames = np.zeros((self.batch_size,) + shape, np.uint8)
-                nos = np.zeros((self.batch_size,), np.int64)
-                valid = np.zeros((self.batch_size,), bool)
-                for i, (f, no) in enumerate(take):
-                    frames[i], nos[i], valid[i] = f, no, True
+                with annotate("stream.assemble", batch=seq):
+                    frames = np.zeros((self.batch_size,) + shape, np.uint8)
+                    nos = np.zeros((self.batch_size,), np.int64)
+                    valid = np.zeros((self.batch_size,), bool)
+                    for i, (f, no) in enumerate(take):
+                        frames[i], nos[i], valid[i] = f, no, True
+                seq += 1
                 yield FrameBatch(frames, nos, valid)
         finally:
             stop.set()
@@ -295,29 +314,30 @@ def read_frames(video: Video, frame_idx: Sequence[int]) -> List[Optional[np.ndar
     caller's order (None where a frame does not exist). A file is read in
     one sorted pass: small gaps are skipped with grab(), gaps over
     ``SEEK_GAP`` frames seek."""
-    if isinstance(video, InMemoryVideo):
-        n = len(video.frames)
-        return [video.frames[max(0, i)] if i < n else None for i in frame_idx]
-    cv2 = _cv2()
-    order = np.argsort(frame_idx, kind="stable")
-    out: List[Optional[np.ndarray]] = [None] * len(frame_idx)
-    cap = cv2.VideoCapture(video)
-    try:
-        pos = 0  # next frame index the decoder will return (0-based)
-        for oi in order:
-            target = max(0, int(frame_idx[oi]))
-            if target < pos or target - pos > SEEK_GAP:
-                cap.set(cv2.CAP_PROP_POS_FRAMES, target)
-                pos = target
-            while pos < target:
-                if not cap.grab():
-                    break
+    with annotate("decode.samples", count=len(frame_idx)):
+        if isinstance(video, InMemoryVideo):
+            n = len(video.frames)
+            return [video.frames[max(0, i)] if i < n else None for i in frame_idx]
+        cv2 = _cv2()
+        order = np.argsort(frame_idx, kind="stable")
+        out: List[Optional[np.ndarray]] = [None] * len(frame_idx)
+        cap = cv2.VideoCapture(video)
+        try:
+            pos = 0  # next frame index the decoder will return (0-based)
+            for oi in order:
+                target = max(0, int(frame_idx[oi]))
+                if target < pos or target - pos > SEEK_GAP:
+                    cap.set(cv2.CAP_PROP_POS_FRAMES, target)
+                    pos = target
+                while pos < target:
+                    if not cap.grab():
+                        break
+                    pos += 1
+                ret, frame = cap.read()
+                if not ret:
+                    continue
                 pos += 1
-            ret, frame = cap.read()
-            if not ret:
-                continue
-            pos += 1
-            out[oi] = frame[:, :, ::-1]
-    finally:
-        cap.release()
-    return out
+                out[oi] = frame[:, :, ::-1]
+        finally:
+            cap.release()
+        return out
