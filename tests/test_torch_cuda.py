@@ -23,7 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 from vse_tpu_torch.kernels import ctc_decode as k1
 from vse_tpu_torch.kernels import keyframe as k2
 from vse_tpu_torch.pipeline.feed import device_prefetch
-from vse_tpu_torch.video.decode import FrameBatch
+from vse_tpu_torch.video.decode import FrameBatch, FrameStream, InMemoryVideo
 from vse_tpu_torch.video.synth import SMOKE_FIXTURE, noisy_band
 
 pytestmark = pytest.mark.cuda
@@ -298,17 +298,18 @@ def distinct_batches(n, shape):
 @pytest.mark.parametrize("depth", [1, 2])
 @pytest.mark.parametrize("hold", [True, False])
 def test_device_prefetch_equals_a_synchronous_upload(cuda, depth, hold):
-    """20 batches of distinct contents, cropped on the host, through the
-    pinned ring and the side stream. The consumer's stream is kept busy
-    before each read, so the feeder runs ahead and the pinned buffers and
-    freed device batches are reused under pressure: each read must still
-    see its own batch."""
+    """20 batches of distinct contents, cropped by the stream's reader to a
+    band, through the pinned ring and the side stream. The consumer's
+    stream is kept busy before each read, so the feeder runs ahead and the
+    pinned buffers and freed device batches are reused under pressure: each
+    read must still see its own batch."""
     shape = (32, 120, 1280, 3)
-    crop = lambda f: f[:, 8:112, :, :]  # noqa: E731
-    hosts = [np.ascontiguousarray(crop(b.frames)) for b in distinct_batches(20, shape)]
+    frames = np.concatenate([b.frames for b in distinct_batches(20, shape)])
+    hosts = [np.ascontiguousarray(frames[i : i + 32, 8:112]) for i in range(0, len(frames), 32)]
+    stream = FrameStream(InMemoryVideo(frames, 25.0, "distinct.avi"), 32,
+                         region=(8, 112, 0, 1280))
     got, kept = [], []
-    for b, dev in device_prefetch(distinct_batches(20, shape), cuda, depth=depth,
-                                  transform=crop):
+    for b, dev in device_prefetch(stream, cuda, depth=depth):
         assert dev.is_cuda and dev.shape == (32, 104, 1280, 3) and dev.is_contiguous()
         torch.cuda._sleep(20_000_000)  # ~10 ms of device time before the read
         got.append(dev.double().sum())
@@ -318,6 +319,21 @@ def test_device_prefetch_equals_a_synchronous_upload(cuda, depth, hold):
     assert [g.item() for g in got] == [float(h.sum(dtype=np.float64)) for h in hosts]
     for dev, host in zip(kept, hosts):
         assert torch.equal(dev, torch.from_numpy(host).to(cuda))
+
+
+def test_device_prefetch_calls_share_one_side_stream(cuda):
+    """Forty calls, as forty clips' scans make: the caching allocator keeps
+    freed batches per stream, so with a stream a call the reserved memory
+    would grow by a segment a call (up to the pool's 32 streams); with one
+    side stream it holds after the first call."""
+    shape = (32, 104, 720, 3)
+    reserved = []
+    for _ in range(40):
+        for _, dev in device_prefetch(distinct_batches(3, shape), cuda):
+            dev.sum()
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(cuda))
+    assert reserved[-1] == reserved[0]
 
 
 @pytest.mark.parametrize("threads,run", [(32, 1), (64, 3), (128, 8), (256, 2)])

@@ -4,7 +4,8 @@ shim as ``tests/test_decode_ffmpeg.py`` (a python script that decodes with
 OpenCV and speaks ffmpeg's rawvideo pipe protocol, named by
 ``$VSE_FFMPEG``): the same frames, frame numbers and timestamps, with and
 without a stride and a start frame; the missing-binary case falls back to
-OpenCV with the reference's warning; and ``--config`` with
+OpenCV with the reference's warning; a stream with a region is the full
+stream cropped; and ``--config`` with
 ``scanner_decoder: ffmpeg`` extracts the JAX extractor's SRT with the same
 config. Everything is compared exactly. (The reference stamps an
 ffmpeg-decoded frame with the next frame's time, so its cues sit one frame
@@ -79,6 +80,17 @@ def test_ffmpeg_stream_matches_jax(video, fake_ffmpeg, stride, start):
     assert got[2] == want[2] and len(got[2]) == 23 - start
     np.testing.assert_array_equal(got[0], opencv[0])
     np.testing.assert_array_equal(got[1], opencv[1])
+
+
+@pytest.mark.parametrize("stride,start,region", [(1, 0, (7, 31, 3, 45)), (4, 7, (-17, 99, 11, 64))])
+def test_ffmpeg_region_stream_is_the_full_stream_cropped(video, fake_ffmpeg, stride, start, region):
+    kw = dict(batch_size=4, stride=stride, start_frame=start, decoder="ffmpeg")
+    y0, y1, x0, x1 = region
+    got = collect(FrameStream(video, region=region, **kw))
+    full = collect(FrameStream(video, **kw))
+    np.testing.assert_array_equal(got[0], full[0][:, y0:y1, x0:x1])
+    np.testing.assert_array_equal(got[1], full[1])
+    assert got[2] == full[2] and len(got[1]) == len(range(start, 23, stride))
 
 
 def test_missing_binary_falls_back_to_opencv_as_the_reference(video, monkeypatch):

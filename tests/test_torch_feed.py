@@ -4,8 +4,11 @@
   same frame numbers, valid masks, frames and ``frame_to_ms`` as the JAX
   package's stream (its Python queue, which always fills a batch), on an
   FFV1 file through OpenCV and on an ``InMemoryVideo``.
-- ``device_prefetch`` with ``device="cpu"``: batches in order, the host
-  transform applied, a feeder error raised in the consumer, and the feeder
+- ``FrameStream(..., region=r)`` yields the full stream's batches cropped
+  to ``r`` (numpy's slice bounds), with the same frame numbers, valid
+  masks, ``frame_to_ms`` and zeroed padding rows, as C-contiguous arrays.
+- ``device_prefetch`` with ``device="cpu"``: batches in order, a region
+  stream's crops uploaded, a feeder error raised in the consumer, and the feeder
   thread and the decode generator ended when the consumer stops early.
 All comparisons are exact.
 """
@@ -70,6 +73,29 @@ def test_frame_stream_matches_jax(clip, batch, stride, start, end):
     assert all(abs(m_to_ms[k] - to_ms[k]) < 1e-6 for k in to_ms)
 
 
+@pytest.mark.parametrize("source", ["opencv", "memory"])
+@pytest.mark.parametrize("batch,stride,start,end,region", [
+    (8, 1, 0, None, (5, 28, 7, 51)), (3, 5, 10, None, (11, 36, 1, 63)),
+    (4, 3, 7, 30, (3, 33, 9, 19)), (32, 1, 0, 40, (-13, 99, 21, 200)),
+])
+def test_region_stream_is_the_full_stream_cropped(clip, source, batch, stride, start, end, region):
+    path, frames = clip
+    video = path if source == "opencv" else InMemoryVideo(frames, FPS, "mem.avi")
+    kw = dict(batch_size=batch, stride=stride, start_frame=start, end_frame=end)
+    y0, y1, x0, x1 = region
+    streams = FrameStream(video, region=region, **kw), FrameStream(video, **kw)
+    got, want = (list(s) for s in streams)
+    assert len(got) == len(want) > 0
+    for b, full in zip(got, want):
+        assert b.frames.flags.c_contiguous and b.frames.dtype == np.uint8
+        np.testing.assert_array_equal(b.frames, full.frames[:, y0:y1, x0:x1])
+        np.testing.assert_array_equal(b.frame_nos, full.frame_nos)
+        np.testing.assert_array_equal(b.valid, full.valid)
+        assert not b.frames[~b.valid].any()
+    assert streams[0].frame_to_ms == streams[1].frame_to_ms
+    assert got[0].frames.shape[1:] == frames[0, y0:y1, x0:x1].shape
+
+
 def batches(n, shape=(4, 6, 10, 3), fail_at=None, log=None):
     """Batches whose frames hold their index everywhere; optionally raises
     at batch ``fail_at``; records its close in ``log``."""
@@ -89,12 +115,18 @@ def feeder_threads():
 
 
 def test_prefetch_order_and_transform():
-    got = list(device_prefetch(batches(20), "cpu", transform=lambda f: f[:, 1:4, 2:7]))
+    """Batches in order; the crop is the stream's region, made in its reader."""
+    frames = np.broadcast_to(np.arange(80, dtype=np.uint8)[:, None, None, None], (80, 6, 10, 3))
+    stream = FrameStream(InMemoryVideo(np.ascontiguousarray(frames), FPS, "mem.avi"), 4,
+                         region=(1, 4, 2, 7))
+    got = list(device_prefetch(stream, "cpu"))
     assert len(got) == 20
     for i, (b, dev) in enumerate(got):
         assert isinstance(dev, torch.Tensor) and dev.device.type == "cpu"
         assert dev.shape == (4, 3, 5, 3) and dev.is_contiguous()
-        assert torch.all(dev == i) and b.frame_nos[0] == 4 * i + 1
+        assert torch.equal(dev, torch.arange(4 * i, 4 * i + 4, dtype=torch.uint8)
+                           .view(4, 1, 1, 1).expand(4, 3, 5, 3))
+        assert b.frame_nos[0] == 4 * i + 1
     got = list(device_prefetch(batches(3), "cpu", depth=1))
     assert [int(d[0, 0, 0, 0]) for _, d in got] == [0, 1, 2]
     assert got[0][1].shape == (4, 6, 10, 3)

@@ -13,7 +13,10 @@ on the CPU.
   records its span on its own thread (the main thread, the frame stream's
   feeder, the decode thread) under the run's clip id; and the counters
   ``ocr.crops`` / ``ocr.boxes`` sum the box slots and the boxes of the
-  arrays ``ocr_arrays`` returned. ``feed.ring_wait`` and ``graph.capture``
+  arrays ``ocr_arrays`` returned, and ``decode.copy_bytes`` /
+  ``decode.frame_bytes`` read the share of each frame the stream's reader
+  copied (nothing of an in-memory clip's full-width rows, which it hands on
+  as a view). ``feed.ring_wait`` and ``graph.capture``
   exist on the card only (pinned buffers, CUDA graphs);
   ``tests/test_torch_cuda.py`` covers them there.
 """
@@ -45,8 +48,7 @@ CLOCK_SLACK_NS = 50_000
 OCR = {"ocr.step", "ocr.letterbox", "ocr.det", "ocr.postprocess", "ocr.crops", "ocr.rec",
        "ocr.k1", "ocr.fetch", "ocr.format"}
 DECODE_THREAD = {"decode.read", "decode.copy", "decode.put_wait"}
-FEEDER_THREAD = {"stream.wait", "stream.assemble", "feed.crop", "feed.stage", "feed.upload",
-                 "feed.put_wait"}
+FEEDER_THREAD = {"stream.wait", "stream.assemble", "feed.stage", "feed.upload", "feed.put_wait"}
 MAIN_THREAD = {
     "keyframe": OCR | {"extract", "pass.scan", "pass.ocr", "pass.post", "feed.wait", "scan.k2",
                        "scan.fetch", "scan.find_spans", "decode.samples"},
@@ -290,4 +292,24 @@ def test_counters_sum_the_arrays_ocr_arrays_returned(runs):
     assert len(crops) == len(boxes) == len(valids) > 0
     assert crops == [v.size for v in valids] and boxes == [int(v.sum()) for v in valids]
     assert 0 < sum(boxes) < sum(crops)
-    assert {c.thread for c in counters} == {main}
+    assert {c.thread for c in counters if c.name.startswith("ocr.")} == {main}
+
+
+def test_decode_counters_read_the_share_of_each_frame_copied(runs):
+    path, _, _, spans, counters, _, main = runs
+    frames, area, cfg, _ = CASES[path]()
+    n, h, w, _ = frames.shape
+    if path == "keyframe":  # the scan's stream: the area
+        region = frames[0, area.ymin : area.ymax, area.xmin : area.xmax]
+    else:  # the per-frame stream: the upload band at full width (here the whole frame)
+        margin = max(32, cfg.subtitle_area_deviation_pixel)
+        region = frames[0, max(0, area.ymin - margin) : min(h, area.ymax + margin)]
+    # rows at full width of an in-memory frame are a contiguous view: the
+    # reader hands them on and copies nothing (both cases here)
+    share = 0 if region.flags.c_contiguous else region.size / frames[0].size
+    copied = [c for c in counters if c.name == "decode.copy_bytes"]
+    whole = [c for c in counters if c.name == "decode.frame_bytes"]
+    assert [c.n for c in whole] == [h * w * 3] * n
+    assert sum(c.n for c in copied) == round(share * sum(c.n for c in whole))
+    (decode,) = {s.thread for s in spans if s.name == "decode.copy"}
+    assert {c.thread for c in copied + whole} == {decode} != {main}

@@ -299,7 +299,7 @@ def print_program_spans(spans, busy_iv, window) -> None:
             roles[s.thread] = "main"
         elif s.name == "decode.read":
             roles.setdefault(s.thread, "decode")
-        elif s.name == "feed.crop":
+        elif s.name == "feed.stage":
             roles.setdefault(s.thread, "feeder")
     table = defaultdict(lambda: [0, 0, 0])
     for s in spans:

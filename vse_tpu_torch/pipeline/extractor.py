@@ -409,16 +409,16 @@ class SubtitleExtractor:
 
     def scan_keyframe_spans(self) -> list:
         """Pass 1: stats of every frame's subtitle area in batches of 32
-        (kernel K2 on the card), each batch cropped on the host and uploaded
-        ahead by ``device_prefetch``; the stats stay on the device until the
-        pass ends. Then the spans and the raw timeline."""
+        (kernel K2 on the card), each frame cropped to the area by the
+        stream's reader and each batch uploaded ahead by ``device_prefetch``;
+        the stats stay on the device until the pass ends. Then the spans and
+        the raw timeline."""
         a = self.sub_area
-        stream = self.stream(32)
+        stream = self.stream(32, region=(a.ymin, a.ymax, a.xmin, a.xmax))
         params = ScanParams()
         all_stats: List[torch.Tensor] = []
         all_nos: List[np.ndarray] = []
-        crop = lambda f: f[:, a.ymin : a.ymax, a.xmin : a.xmax]  # noqa: E731
-        for batch, band in device_prefetch(stream, self.device, transform=crop):
+        for batch, band in device_prefetch(stream, self.device):
             self._check_cancel()
             n_valid = int(batch.valid.sum())
             with annotate("scan.k2", batch=len(all_stats)):
@@ -518,8 +518,8 @@ class SubtitleExtractor:
             samples = []
             for i in range(0, len(pairs), B):
                 self._check_cancel()
-                chunk = np.stack([f for _, f in pairs[i : i + B]])
-                results = self.engine.predict_batch(chunk[:, y0:y1], origin=(y0, 0))
+                chunk = np.stack([f[y0:y1] for _, f in pairs[i : i + B]])
+                results = self.engine.predict_batch(chunk, origin=(y0, 0))
                 for (m, f), (dt_box, rec_res) in zip(pairs[i : i + B], results):
                     samples.append((m[0], m[1], dt_box, rec_res, f if keep_frames else None))
                 self.update_progress(ocr=min(100.0, (i + B) / max(1, len(pairs)) * 100))
@@ -533,7 +533,8 @@ class SubtitleExtractor:
     def extract_frame_by_fps(self) -> None:
         """OCR every ``fps // extract_frequency``-th frame (reference
         backend/main.py:228-253) in batches of ``frame_batch``, uploaded
-        ahead by ``device_prefetch``. With ``resume``, the progress manifest
+        ahead by ``device_prefetch``: whole frames, since this strategy runs
+        only without an area. With ``resume``, the progress manifest
         is saved every 8 batches and a run starts after the last saved
         frame."""
         t0 = time.perf_counter()
@@ -551,16 +552,11 @@ class SubtitleExtractor:
                 manifest = ProgressManifest(path, "fps")
         stream = self.stream(self.config.frame_batch, stride=stride,
                              start_frame=start_frame)
-        transform, origin = None, (0, 0)
-        band = self.upload_band()
-        if band is not None:
-            y0, y1 = band
-            transform, origin = (lambda f: f[:, y0:y1]), (y0, 0)
         batches_since_save = n_samples = 0
-        for batch, frames in device_prefetch(stream, self.device, transform=transform):
+        for batch, frames in device_prefetch(stream, self.device):
             self._check_cancel()
             n_valid = int(batch.valid.sum())
-            results = self.engine.predict_batch(frames, origin=origin)[:n_valid]
+            results = self.engine.predict_batch(frames)[:n_valid]
             for i, (dt_box, rec_res) in enumerate(results):
                 self._gate_and_record(int(batch.frame_nos[i]), dt_box, rec_res,
                                       frame=batch.frames[i])
@@ -585,21 +581,18 @@ class SubtitleExtractor:
     def extract_frame_by_det(self) -> None:
         """Every frame's upload band through the engine in batches of
         ``frame_batch`` (reference backend/main.py:255-376, :924-952),
-        uploaded ahead by ``device_prefetch``; ``DetSpanTracker`` turns the
-        per-frame reads into cues."""
+        cropped by the stream's reader and uploaded ahead by
+        ``device_prefetch``; ``DetSpanTracker`` turns the per-frame reads
+        into cues."""
         t0 = time.perf_counter()
-        stream = self.stream(self.config.frame_batch)
+        y0, y1 = self.upload_band() or (0, self.frame_height)
+        stream = self.stream(self.config.frame_batch, region=(y0, y1, 0, self.frame_width))
         tracker = DetSpanTracker(self)
-        transform, origin = None, (0, 0)
-        band = self.upload_band()
-        if band is not None:
-            y0, y1 = band
-            transform, origin = (lambda f: f[:, y0:y1]), (y0, 0)
         n_frames = 0
-        for batch, frames in device_prefetch(stream, self.device, transform=transform):
+        for batch, frames in device_prefetch(stream, self.device):
             self._check_cancel()
             n_valid = int(batch.valid.sum())
-            results = self.engine.predict_batch(frames, origin=origin)[:n_valid]
+            results = self.engine.predict_batch(frames, origin=(y0, 0))[:n_valid]
             for i in range(n_valid):
                 frame_no = int(batch.frame_nos[i])
                 tracker.feed(frame_no, *results[i])

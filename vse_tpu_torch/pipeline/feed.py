@@ -1,13 +1,13 @@
 """Host -> device feed: overlap frame-batch uploads with the device's work
 (the port of ``vse_tpu/pipeline/feed.py::device_prefetch``).
 
-A feeder thread takes decoded batches, applies the host ``transform`` (the
-subtitle-band crop) and uploads each batch ``depth`` batches ahead of the
-consumer. On the card a batch is staged in a page-locked host buffer and
-copied with ``non_blocking=True`` on a side stream; the consumer's stream
-waits on the copy's event before it reads the batch. On the CPU (an explicit
-``device="cpu"``) the same thread hands over contiguous host tensors, with
-no streams and no pinning.
+A feeder thread takes decoded batches and uploads each batch ``depth``
+batches ahead of the consumer; a caller that reads a band of each frame
+crops it in the stream's reader (``FrameStream(..., region=...)``), before
+the batch is made. On the card a batch is staged in a page-locked host
+buffer and copied with ``non_blocking=True`` on a side stream; the
+consumer's stream waits on the copy's event before it reads the batch. On the CPU (an explicit ``device="cpu"``) the same thread hands
+over contiguous host tensors, with no streams and no pinning.
 
 Buffer reuse, the fault that would show as a wrong frame now and then
 rather than as an error:
@@ -19,17 +19,22 @@ rather than as an error:
   ``record_stream`` for the consumer's stream, so the caching allocator
   hands its memory out again only after the consumer's work on it is done.
 
+The side stream is one per device for the process (``_side_stream``): the
+caching allocator keeps freed blocks per stream, and PyTorch hands out its
+pool's 32 streams in turn, so a stream a call would leave one more cached
+segment of batches per call, up to 32.
+
 Spans (``utils/tracing.py``, no-ops unless recording), each with the
-batch's sequence number ``batch``: on the feeder thread ``feed.crop`` (the
-transform), ``feed.ring_wait`` (a pinned buffer's last copy, on the card),
-``feed.stage`` (the copy into pinned memory; on the CPU into a contiguous
-array), ``feed.upload`` (the async copy's enqueue; on the CPU the hand-over
+batch's sequence number ``batch``: on the feeder thread ``feed.ring_wait``
+(a pinned buffer's last copy, on the card), ``feed.stage`` (the copy into
+pinned memory; on the CPU into a contiguous array), ``feed.upload`` (the async copy's enqueue; on the CPU the hand-over
 as a tensor) and ``feed.put_wait`` (the consumer behind); on the
 consumer's thread ``feed.wait`` (blocked on the next batch).
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import queue
 import threading
@@ -68,6 +73,12 @@ class _PinnedRing:
         return buf, k
 
 
+@functools.lru_cache(maxsize=None)
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream the uploads to ``device`` run on."""
+    return torch.cuda.Stream(device)
+
+
 def _upload(frames: np.ndarray, device: torch.device, ring: Optional[_PinnedRing],
             side: Optional["torch.cuda.Stream"], seq: int):
     """Batch ``seq`` onto ``device``: (tensor, event the consumer waits on)."""
@@ -90,12 +101,11 @@ def device_prefetch(
     batches: Iterable[FrameBatch],
     device: Union[str, torch.device] = "cuda",
     depth: int = 2,
-    transform=None,
 ) -> Iterator[Tuple[FrameBatch, torch.Tensor]]:
     """Yield ``(host_batch, device_frames)`` with uploads running ``depth``
-    batches ahead, ``device_frames`` being ``transform(host_batch.frames)``
-    (or the frames themselves) as a contiguous uint8 tensor on ``device``,
-    ready for work on the consumer's current stream.
+    batches ahead, ``device_frames`` being the batch's frames as a
+    contiguous uint8 tensor on ``device``, ready for work on the consumer's
+    current stream.
 
     The feeder's bounded put gives up when the consumer is gone (an early
     exit such as ``ExtractionCancelled``), the decode generator is closed
@@ -107,7 +117,7 @@ def device_prefetch(
     if on_card:
         device = torch.device("cuda", torch.cuda.current_device() if device.index is None
                               else device.index)
-    side = torch.cuda.Stream(device) if on_card else None
+    side = _side_stream(device) if on_card else None
     ring = _PinnedRing(depth + 2) if on_card else None
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     err: list = []
@@ -133,9 +143,7 @@ def device_prefetch(
             for seq, b in enumerate(it):
                 if stop.is_set():
                     break
-                with annotate("feed.crop", batch=seq):
-                    frames = b.frames if transform is None else transform(b.frames)
-                item = (b, *_upload(frames, device, ring, side, seq))
+                item = (b, *_upload(b.frames, device, ring, side, seq))
                 with annotate("feed.put_wait", batch=seq):
                     if not _put(item):
                         break

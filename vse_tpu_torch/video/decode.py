@@ -11,12 +11,21 @@ constant-frame-rate file. The frame queue is plain Python (a reader thread
 and a bounded ``queue.Queue``); the JAX package's native ring buffer is not
 used.
 
+``FrameStream(..., region=(y0, y1, x0, x1))`` crops each sampled frame to
+those rows and columns in the reader thread, before its first copy, and
+yields batches of the crop: a caller that reads only the subtitle band
+copies only the band. Without a region the batches hold whole frames.
+
 The reader thread records ``decode.read`` (a frame's decode),
-``decode.copy`` (its contiguous RGB copy) and ``decode.put_wait`` (the
-queue full); the batch assembly records ``stream.wait`` (waiting on the
-reader) and ``stream.assemble`` (the batch's zero-fill and copies, attr
+``decode.copy`` (the contiguous RGB copy of the frame, or of its region)
+and ``decode.put_wait`` (the queue full), and counts ``decode.frame_bytes``
+(a sampled frame's bytes) and ``decode.copy_bytes`` (the bytes its copy
+wrote; none where the region of an in-memory frame is already contiguous
+and is handed on as a view);
+the batch assembly records ``stream.wait`` (waiting on the reader) and
+``stream.assemble`` (the batch's copies and padding rows' zero-fill, attr
 ``batch``); ``read_frames`` records ``decode.samples`` (attr ``count``).
-They are ``utils/tracing.py`` spans, no-ops unless recording.
+They are ``utils/tracing.py`` spans and counters, no-ops unless recording.
 
 ``FrameStream(..., decoder="ffmpeg")`` (``Decoder.FFMPEG``, the config's
 ``scanner_decoder``) decodes a file through an ffmpeg rawvideo pipe: the
@@ -38,7 +47,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from vse_tpu_torch.utils.tracing import annotate, carry
+from vse_tpu_torch.utils.tracing import annotate, carry, count
 
 QUEUE_DEPTH = 64  # decoded frames buffered ahead of the consumer
 SEEK_GAP = 300  # read_frames seeks over gaps longer than this many frames
@@ -184,6 +193,19 @@ class _FFmpegCapture:
         self._proc = None
 
 
+def _contiguous(view: np.ndarray) -> np.ndarray:
+    """``np.ascontiguousarray(view)`` of a uint8 [..., 3] view. A
+    channel-reversed view (a BGR frame read as RGB) is copied a channel at a
+    time: numpy copies its reversed 3-element rows element by element, about
+    4x slower than three strided planes."""
+    if view.strides[-1] >= 0:
+        return np.ascontiguousarray(view)
+    out = np.empty(view.shape, view.dtype)
+    for c in range(view.shape[-1]):
+        out[..., c] = view[..., c]
+    return out
+
+
 @dataclass
 class FrameBatch:
     """A contiguous stack of decoded frames plus their metadata."""
@@ -198,6 +220,10 @@ class FrameStream:
     one zero-padded, ``valid`` False on the padding). A reader thread
     decodes ahead into a bounded queue.
 
+    ``region=(y0, y1, x0, x1)`` keeps only ``frame[y0:y1, x0:x1]`` of each
+    frame (numpy's slice bounds, clipped to the frame): the reader copies
+    just that, and the batches are ``[B, y1 - y0, x1 - x0, 3]``.
+
     ``stride`` samples fps-mode style: emit one frame, skip ``stride - 1``
     (the reference's ``fps // extractFrequency`` skip loop, backend/main.py:
     246-252). Decoding starts after the first ``start_frame`` frames and
@@ -207,9 +233,13 @@ class FrameStream:
 
     def __init__(self, video: Video, batch_size: int, stride: int = 1,
                  start_frame: int = 0, end_frame: Optional[int] = None,
-                 decoder: str = "opencv"):
+                 decoder: str = "opencv",
+                 region: Optional[Tuple[int, int, int, int]] = None):
         self.video = video
         self.meta = probe(video)
+        y0, y1, x0, x1 = region if region is not None else (None,) * 4
+        ys, xs = range(self.meta.height)[y0:y1], range(self.meta.width)[x0:x1]
+        self.region = (ys.start, ys.stop, xs.start, xs.stop)  # the whole frame without one
         self.batch_size = batch_size
         self.stride = max(1, stride)
         self.start_frame = start_frame
@@ -256,6 +286,7 @@ class FrameStream:
             cap.release()
 
     def _decode_loop(self, q: "queue.Queue", stop: threading.Event) -> None:
+        y0, y1, x0, x1 = self.region
         frames = self._frames()
         try:
             for frame, no, ts in frames:
@@ -264,15 +295,19 @@ class FrameStream:
                 self.frame_to_ms[no] = ts
                 if (no - self.start_frame - 1) % self.stride == 0:
                     with annotate("decode.copy"):
-                        frame = np.ascontiguousarray(frame)
+                        out = _contiguous(frame[y0:y1, x0:x1])
+                    count("decode.frame_bytes", frame.nbytes)
+                    if not np.may_share_memory(out, frame):  # a contiguous view is handed on
+                        count("decode.copy_bytes", out.nbytes)
                     with annotate("decode.put_wait"):
-                        q.put((frame, no))
+                        q.put((out, no))
         finally:
             frames.close()  # release the capture now, not at collection
             q.put(None)
 
     def __iter__(self) -> Iterator[FrameBatch]:
-        shape = (self.meta.height, self.meta.width, 3)
+        y0, y1, x0, x1 = self.region
+        shape = (y1 - y0, x1 - x0, 3)
         q: "queue.Queue" = queue.Queue(maxsize=QUEUE_DEPTH)
         stop = threading.Event()
         t = threading.Thread(target=carry(self._decode_loop), args=(q, stop), daemon=True)
@@ -292,7 +327,8 @@ class FrameStream:
                 if not take:
                     break
                 with annotate("stream.assemble", batch=seq):
-                    frames = np.zeros((self.batch_size,) + shape, np.uint8)
+                    frames = np.empty((self.batch_size,) + shape, np.uint8)
+                    frames[len(take):] = 0
                     nos = np.zeros((self.batch_size,), np.int64)
                     valid = np.zeros((self.batch_size,), bool)
                     for i, (f, no) in enumerate(take):
