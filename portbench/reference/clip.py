@@ -2,11 +2,13 @@
 area (keyframe strategy), OCR the given frames, and rebuild the cues from
 a set of per-frame reads.
 
-``Reference`` holds the float32 models (or, with ``control=True``, the
-same models in float8, the resampling products of the letterbox and the
-crops in float8 and the scan's gray in bfloat16: the control that the
-comparison has to fail). It imports nothing of the program: the clip
-files, the weight files and the charset file are read here.
+``Reference`` holds the float32 models, each found by the ``kind`` of its
+configuration section (``reference/arch/<kind>.py``), or, with
+``control=True``, the same models in float8, the resampling products of
+the letterbox and the crops in float8 and the scan's gray in bfloat16: the
+control that the comparison has to fail. It imports nothing of the
+program: the clip files, the weight files and the charset file are read
+here.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import arch
 from . import models as M
 from . import ocr as O
 from . import post as P
@@ -54,12 +57,8 @@ class Reference:
             torch.backends.cudnn.allow_tf32 = False
         det, rec = config["det"], config["rec"]
         path = lambda p: os.path.join(ROOT, p)  # noqa: E731
-        if det["variant"] == "server":
-            self.det = M.load_db_resnet(path(det["weights"]))
-        else:
-            self.det = M.load_ppocr_det(path(det["weights"]))
-        self.rec = M.load_crnn(path(rec["weights"]), rec["num_classes"],
-                               rec["lstm_hidden_size"], rec["backbone_scale"])
+        self.det = arch.of(det).load(path(det["weights"]), det)
+        self.rec = arch.of(rec).load(path(rec["weights"]), rec)
         self.control = control
         self.q = M.fp8 if control else O.same
         if control:

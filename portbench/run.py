@@ -51,14 +51,27 @@ for _k, _v in (("TRITON_CACHE_DIR", "triton"), ("TORCH_EXTENSIONS_DIR", "torch_e
                ("CUDA_CACHE_PATH", "cuda")):
     os.environ[_k] = os.path.join(CACHE, _v)
 os.environ["USE_FLAX"] = "0"
+# The process's thread pools, part of every cell's deployment, fixed through
+# the environment before numpy and torch load (BLAS, OpenMP, the video
+# decoder's) and by their calls after (torch's intra-op pool, OpenCV's).
+# README.md says why these counts.
+THREADS = {"blas": 1, "torch": 2, "cv2": 2, "ffmpeg": 8}
+os.environ["OPENBLAS_NUM_THREADS"] = os.environ["MKL_NUM_THREADS"] = str(THREADS["blas"])
+os.environ["OMP_NUM_THREADS"] = str(THREADS["torch"])
+os.environ["OPENCV_FFMPEG_THREADS"] = str(THREADS["ffmpeg"])
 sys.path[:0] = [HERE, ROOT]
 
+import cv2  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+torch.set_num_threads(THREADS["torch"])
+cv2.setNumThreads(THREADS["cv2"])
 
 import devtrace  # noqa: E402
 import judge  # noqa: E402
 import tracer as T  # noqa: E402
+from reference import arch  # noqa: E402
 from reference import clip as C  # noqa: E402
 from reference import post as P  # noqa: E402
 
@@ -78,10 +91,35 @@ def load_cell(name: str, traffic_file: str = ""):
     spec = next(c for c in bench["configs"] if c["name"] == cell["config"])
     with open(os.path.join(ROOT, spec["file"]), "r", encoding="utf-8") as f:
         config = json.load(f)
+    check_kinds(config)
     tpath = traffic_file or os.path.join(HERE, "traffic", cell["traffic"] + ".json")
     with open(tpath, "r", encoding="utf-8") as f:
         traffic = json.load(f)
     return bench, cell, config, traffic, tpath
+
+
+def check_kinds(config: dict) -> None:
+    """Each model of the configuration has its reference by its kind."""
+    for part in ("det", "rec"):
+        try:
+            arch.of(config[part])
+        except arch.UnknownKind as e:
+            raise Failure(f"configuration section {part!r}: {e}") from None
+
+
+def thread_counts() -> dict:
+    """The thread pools as they stand: torch's intra-op pool, OpenCV's, the
+    video decoder's, and each BLAS or OpenMP library's as threadpoolctl
+    reads it (None where threadpoolctl is not installed)."""
+    out = {"torch": torch.get_num_threads(), "cv2": cv2.getNumThreads(),
+           "ffmpeg": int(os.environ["OPENCV_FFMPEG_THREADS"])}
+    try:
+        from threadpoolctl import threadpool_info
+    except ImportError:
+        out["libs"] = None
+    else:
+        out["libs"] = sorted({(i["internal_api"], i["num_threads"]) for i in threadpool_info()})
+    return out
 
 
 def forbidden_modules() -> list:
@@ -434,6 +472,7 @@ def main(argv=None) -> int:
     ap.add_argument("--traffic-file", default="", help=argparse.SUPPRESS)
     ap.add_argument("--cache", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    print(f"threads: {json.dumps(thread_counts())}", file=sys.stderr)
     try:
         result = run(args)
     except Failure as e:

@@ -19,6 +19,13 @@ def bench() -> dict:
         return json.load(f)
 
 
+def config(name: str) -> dict:
+    """The configuration file of ``BENCHMARK.json``'s config ``name``."""
+    spec = next(c for c in bench()["configs"] if c["name"] == name)
+    with open(os.path.join(ROOT, spec["file"]), "r", encoding="utf-8") as f:
+        return json.load(f)
+
+
 def tiny_traffic(tmp_path, name: str = "keyframe-area", **kw) -> str:
     """A copy of a mix with 2 s clips of one cue, written under
     ``tmp_path``."""

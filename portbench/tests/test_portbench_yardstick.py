@@ -1,9 +1,12 @@
-"""The FLOP and byte counters against shapes worked by hand."""
+"""The FLOP and byte counters against shapes worked by hand, and the
+forwards of both configurations against the integers that the counter gave
+before it found each model by its kind."""
 
+import pytest
 import torch
 import torch.nn as nn
 
-from _helpers import PB  # noqa: F401
+from _helpers import config
 
 import yardstick as Y
 
@@ -46,7 +49,18 @@ def test_forward_flops_by_hand():
 
 
 def test_rec_flops_scale_with_batch():
-    one = Y.forward_flops("rec:21060", (1, 48, 320, 3))
-    assert Y.forward_flops("rec:21060", (8, 48, 320, 3)) == 8 * one
+    rec = config("mobile-ch")["rec"]
+    one = Y.forward_flops(rec, (1, 48, 320, 3))
+    assert Y.forward_flops(rec, (8, 48, 320, 3)) == 8 * one
     # the projection alone: 80 steps of 96 -> 21060
     assert one > 2 * 80 * 96 * 21060
+
+
+@pytest.mark.parametrize("name, part, shape, flops", [
+    ("mobile-ch", "det", (8, 192, 960, 3), 13765008384),
+    ("server-ch", "det", (8, 192, 960, 3), 329357721600),
+    ("mobile-ch", "rec", (64, 48, 320, 3), 25975832576),
+    ("server-ch", "rec", (64, 48, 320, 3), 25975832576),
+])
+def test_forward_flops_keep_their_integers(name, part, shape, flops):
+    assert Y.forward_flops(config(name)[part], shape) == flops

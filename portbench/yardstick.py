@@ -9,7 +9,8 @@ limit beside them.
 
 A forward's operations are counted from the reference models' layer
 shapes: 2 x multiply-adds of every convolution, transposed convolution,
-dense layer and LSTM (both directions, all four gates); normalization,
+dense layer and LSTM (both directions, all four gates), plus what the
+model kind's ``extra_flops`` counts outside those calls; normalization,
 activations and adds are not counted. A kernel's bytes count each input
 byte read once and each output byte written once.
 """
@@ -17,11 +18,13 @@ byte read once and each output byte written once.
 from __future__ import annotations
 
 import functools
+import json
 from typing import Tuple
 
 import torch
 import torch.nn as nn
 
+from reference import arch
 from reference import models as M
 
 PEAK_BF16_FLOPS = 989e12
@@ -57,21 +60,19 @@ def _forward_flops(model: nn.Module, shape: Tuple[int, ...]) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _model(kind: str) -> nn.Module:
+def _flops(section: str, shape: Tuple[int, ...]) -> int:
+    sec = json.loads(section)
+    kind = arch.of(sec)
     with torch.device("meta"):
-        if kind == "det:mobile":
-            return M.PPOCRv3Det().eval()
-        if kind == "det:server":
-            return M.DBResNet().eval()
-        classes = int(kind.split(":")[1])
-        return M.CRNN(classes).eval()
+        model = kind.build(sec).eval()
+    return _forward_flops(model, shape) + int(kind.extra_flops(sec, shape))
 
 
-@functools.lru_cache(maxsize=None)
-def forward_flops(kind: str, shape: Tuple[int, ...]) -> int:
-    """Operations of one forward of ``kind`` ("det:mobile", "det:server",
-    "rec:<classes>") on an NHWC input of ``shape``."""
-    return _forward_flops(_model(kind), shape)
+def forward_flops(section: dict, shape: Tuple[int, ...]) -> int:
+    """Operations of one forward of the model that a configuration's ``det``
+    or ``rec`` section describes (``reference/arch/<kind>.py``) on an NHWC
+    input of ``shape``."""
+    return _flops(json.dumps(section, sort_keys=True), tuple(shape))
 
 
 def k1_bytes(n: int, t: int, c: int, itemsize: int = 4) -> int:
